@@ -1,0 +1,51 @@
+"""Carry models and cameras across as numpy arrays.
+
+The JAX package's GaussianParams leaves and Camera fields have the same
+names and shapes here, so a model or camera converted to numpy on one side
+loads on the other.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from manus_tpu_torch.models.gaussians import GaussianModel, GaussianParams
+from manus_tpu_torch.utils.camera import TENSOR_FIELDS, Camera
+from manus_tpu_torch.utils.device import resolve_device
+
+PARAM_KEYS = GaussianParams._fields
+MODEL_KEYS = PARAM_KEYS + ("active", "skin_weights")
+
+
+def model_from_numpy(d: dict, device=None) -> GaussianModel:
+    """{xyz, features_dc, features_rest, scaling, rotation, opacity, active,
+    skin_weights (optional)} numpy arrays -> GaussianModel on `device`."""
+    device = resolve_device(device)
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+    sw = d.get("skin_weights")
+    return GaussianModel(
+        params=GaussianParams(*(t(d[k]) for k in PARAM_KEYS)),
+        active=t(d["active"], torch.bool),
+        skin_weights=None if sw is None else t(sw),
+    )
+
+
+def model_to_numpy(model: GaussianModel) -> dict:
+    out = {k: v.detach().cpu().numpy() for k, v in model.params._asdict().items()}
+    out["active"] = model.active.cpu().numpy()
+    if model.skin_weights is not None:
+        out["skin_weights"] = model.skin_weights.detach().cpu().numpy()
+    return out
+
+
+def camera_from_numpy(d: dict, device=None) -> Camera:
+    """{K, extr, world_view_transform, projection_matrix,
+    full_proj_transform, camera_center, fovx, fovy, width, height} -> Camera
+    (a leading [V] axis on every array gives a stacked Camera)."""
+    device = resolve_device(device)
+    fields = {f: torch.tensor(np.asarray(d[f], np.float32), device=device)
+              for f in TENSOR_FIELDS}
+    return Camera(**fields, width=int(d["width"]), height=int(d["height"]))

@@ -1,0 +1,212 @@
+"""The training step of the object and hand (articulated LBS) workloads.
+
+One step renders each view, sums the losses, takes gradients with
+autograd, applies masked per-group Adam, runs the mask-pruning phase and
+accumulates densification statistics. Batches carry a leading view axis
+V; views are an unrolled loop. Single device; decisions that depend only
+on the step number are taken on the host, and those that depend on data
+are tensor masks, so a step makes no host round-trip.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from manus_tpu_torch.config import ExperimentConfig
+from manus_tpu_torch.models import densify as densify_mod
+from manus_tpu_torch.models.gaussians import (
+    GaussianModel,
+    GaussianOpts,
+    GaussianParams,
+    get_covariance,
+    get_features,
+    get_opacity,
+    get_scaling,
+)
+from manus_tpu_torch.ops.mask_prune import points_outside_mask
+from manus_tpu_torch.ops.rasterizer.api import RasterConfig, render_gaussians
+from manus_tpu_torch.ops.skinning import skin_gaussians
+from manus_tpu_torch.train import optim as optim_mod
+from manus_tpu_torch.utils import losses as loss_mod
+from manus_tpu_torch.utils.camera import index_camera
+
+
+class TrainState(NamedTuple):
+    model: GaussianModel
+    opt: optim_mod.AdamState
+    stats: densify_mod.DensifyStats
+    step: int
+    mask_pruned_flag: torch.Tensor  # [] bool: did mask-prune fire this step
+
+
+def init_train_state(model: GaussianModel) -> TrainState:
+    dev = model.active.device
+    return TrainState(
+        model=model,
+        opt=optim_mod.init_adam(model.params),
+        stats=densify_mod.init_stats(model.capacity, dev),
+        step=0,
+        mask_pruned_flag=torch.zeros((), dtype=torch.bool, device=dev),
+    )
+
+
+def resolve_skin_weights(model: GaussianModel,
+                         voxel_grid=None) -> Optional[torch.Tensor]:
+    """Points mode: the stored per-point weights."""
+    if voxel_grid is not None:
+        raise NotImplementedError("voxel-grid skinning is not ported yet")
+    return model.skin_weights
+
+
+def forward_gaussians(params: GaussianParams, active, skin_weights,
+                      bone_tf: Optional[torch.Tensor], opts: GaussianOpts):
+    """Object (identity pose) or hand (LBS). Returns (posed_xyz, posed_cov,
+    tf or None); bone_tf: [B, 4, 4] rest->posed transforms."""
+    cov_cano = get_covariance(params, isotropic=opts.isotropic_scaling)
+    if bone_tf is None:
+        return params.xyz, cov_cano, None
+    sk = skin_gaussians(params.xyz, cov_cano, skin_weights, bone_tf)
+    return sk.posed_xyz, sk.posed_cov, sk.tf
+
+
+def make_raster_config(cfg: ExperimentConfig) -> RasterConfig:
+    r = cfg.raster
+    return RasterConfig(
+        tg_max=r.tg_max, chunk=r.chunk,
+        max_pairs_per_tile=r.max_pairs_per_tile, backend=r.backend,
+        lane_align=r.lane_align, pair_budget_factor=r.pair_budget_factor,
+        multi_frac=r.multi_frac,
+    )
+
+
+def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
+                    voxel_grid=None, mesh=None):
+    """The train step for one workload configuration.
+
+    Batch (leading V = views per step): rgb [V,H,W,3], mask [V,H,W,1],
+    cameras: a stacked Camera [V], bg [3], and for the hand bone_tf
+    [B,4,4] and keypoints [K,3]. Returns step(state, batch) ->
+    (state, metrics), metrics a dict of 0-d tensors.
+    """
+    del extent  # densification, which reads it, is not ported yet
+    opts = cfg.model
+    if mesh is not None:
+        raise NotImplementedError("multi-device training is not ported yet")
+    if voxel_grid is not None:
+        raise NotImplementedError("voxel-grid skinning is not ported yet")
+    if opts.optimize_skin_weights:
+        raise NotImplementedError("trainable skin weights are not ported yet")
+    raster_cfg = make_raster_config(cfg)
+    loss_names = tuple(cfg.loss.losses)
+    loss_weights = tuple(cfg.loss.loss_weight)
+    width, height = cfg.dataset.width, cfg.dataset.height
+
+    def loss_fn(params, m2d_off, active, skin_w, batch):
+        posed_xyz, posed_cov, tf = forward_gaussians(
+            params, active, skin_w, batch.get("bone_tf"), opts)
+        feats = get_features(params)
+        opac = get_opacity(params)
+        scaling = get_scaling(params, opts.isotropic_scaling)
+        totals, radii, renders, parts, overflow = [], [], [], [], []
+        for i in range(batch["rgb"].shape[0]):
+            out = render_gaussians(
+                posed_xyz, posed_cov, params.xyz, feats, opac,
+                index_camera(batch["cameras"], i), batch["bg"],
+                sh_degree=opts.sh_degree, tf=tf, active=active,
+                means2d_offset=m2d_off[i], config=raster_cfg,
+            )
+            total, part = loss_mod.compute_losses(
+                out.render, batch["rgb"][i], scaling, active, loss_names,
+                loss_weights, opts.condition_number)
+            totals.append(total)
+            radii.append(out.radii)
+            renders.append(out.render)
+            parts.append(part)
+            overflow.append(torch.stack([out.overflow, out.overflow_far]))
+        aux = dict(
+            radii=torch.stack(radii), renders=torch.stack(renders),
+            parts={k: torch.stack([p[k] for p in parts]) for k in parts[0]},
+            posed_xyz=posed_xyz.detach(), overflow=torch.stack(overflow),
+        )
+        return torch.stack(totals).mean(), aux
+
+    def train_step(state: TrainState, batch):
+        v = batch["rgb"].shape[0]
+        model = state.model
+        n = model.capacity
+        skin_w = resolve_skin_weights(model)
+        params = GaussianParams(*(p.detach().requires_grad_(True)
+                                  for p in model.params))
+        m2d = torch.zeros(v, n, 2, device=model.active.device,
+                          requires_grad=True)
+        loss, aux = loss_fn(params, m2d, model.active, skin_w, batch)
+        grads = torch.autograd.grad(loss, [*params, m2d], allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for g, x in zip(grads, [*params, m2d])]
+        g_params = GaussianParams(*grads[:-1])
+        # loss averages the views: rescale to per-view-loss gradients, so
+        # densify thresholds do not depend on the number of views
+        g_m2d = grads[-1] * v
+
+        step = state.step
+        lrs = optim_mod.group_learning_rates(opts, step)
+        new_params, new_opt = optim_mod.adam_update(
+            model.params, g_params, state.opt, lrs, model.active)
+        loss = loss.detach()
+
+        # mask pruning phase (reference on_after_backward)
+        in_seg_phase = opts.remove_seg_start <= step < opts.remove_seg_end
+        posed = aux["posed_xyz"]
+        outside = torch.zeros(n, dtype=torch.bool, device=posed.device)
+        if in_seg_phase:
+            outside = points_outside_mask(
+                index_camera(batch["cameras"], 0), posed, batch["mask"][0],
+                keypoints=batch.get("keypoints") if articulated else None,
+                dilate=articulated, active=model.active,
+            )
+        elif articulated and step % 100 == 0 and step >= opts.remove_seg_end:
+            # distance-to-skeleton prune every 100 steps after the seg phase
+            kp = batch["keypoints"]
+            dist = torch.linalg.norm(
+                posed[:, None, :] - kp[None, :, :], dim=-1).mean(1)
+            outside = (dist > opts.skeleton_dist_threshold) & model.active
+        do_prune = outside.any()
+        # an all-false mask leaves active and the moments as they are
+        new_active = model.active & ~outside
+        new_opt = optim_mod.reset_moments_rows(new_opt, outside)
+
+        # densification stats, skipped on mask-prune steps
+        new_stats = state.stats
+        if step < opts.densify_until_step:
+            acc = new_stats
+            for i in range(v):
+                acc = densify_mod.accumulate_stats(
+                    acc, g_m2d[i], aux["radii"][i], width, height)
+            new_stats = densify_mod.DensifyStats(*(
+                torch.where(do_prune, old, new)
+                for old, new in zip(state.stats, acc)))
+
+        metrics = dict(
+            loss=loss,
+            psnr=loss_mod.psnr(aux["renders"][0].detach(), batch["rgb"][0]),
+            num_active=new_active.sum(),
+            mask_pruned=outside.sum(),
+            pair_overflow=aux["overflow"][:, 0].max(),
+            pair_overflow_far=aux["overflow"][:, 1].max(),
+            max_radius=aux["radii"].max(),
+        )
+        for k, val in aux["parts"].items():
+            metrics[f"loss/{k}"] = val.detach().mean()
+
+        new_state = TrainState(
+            model=model._replace(params=GaussianParams(
+                *(p.detach() for p in new_params)), active=new_active),
+            opt=new_opt,
+            stats=new_stats,
+            step=step + 1,
+            mask_pruned_flag=do_prune,
+        )
+        return new_state, metrics
+
+    return train_step

@@ -1,0 +1,91 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` has a plain C interface and is compiled for Hopper
+(sm_90a) into its own shared library under `manus_tpu_torch/_build/`,
+named by a hash of its source and flags, so an unchanged source is built
+once per checkout. Several sources build in parallel, one nvcc each.
+Nothing is built when a module is imported: the first call that needs a
+library builds it.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names) -> dict[str, str]:
+    """Compile every named source that has no library yet, all at once.
+
+    Returns {name: nvcc's output} for the sources it compiled (ptxas's
+    register and shared-memory report); raises on a failed compile.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, out)
+    logs = {}
+    failed = []
+    for name, (proc, tmp, out) in jobs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+    return logs
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The library of csrc/<name>.cu, built if needed, with each function
+    of `signatures` ({fn: (argtypes, restype)}) typed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, (argtypes, restype) in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,81 @@
+"""Guards on the PyTorch port's package boundary and device rules."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "manus_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "manus_tpu"), f"{path}: imports {mod}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import chip_smoke\n"
+        "from manus_tpu_torch.train.workloads import make_train_step\n"
+        "from manus_tpu_torch.ops.rasterizer.api import render_gaussians\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'manus_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from manus_tpu_torch.models.gaussians import init_gaussian_model
+    from manus_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_gaussian_model([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0]],
+                            [[0.5, 0.5, 0.5]] * 2, 4)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cuda_backend_on_cpu_tensors_raises():
+    from manus_tpu_torch.ops.rasterizer import composite
+    from manus_tpu_torch.ops.rasterizer.api import RasterConfig, render_gaussians
+    from manus_tpu_torch.utils.camera import make_camera
+
+    cam = make_camera([[40.0, 0, 15.5], [0, 40.0, 15.5], [0, 0, 1]],
+                      [[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, 3.0]],
+                      32, 32, device="cpu")
+    n = 8
+    with pytest.raises(ValueError, match="backend='cuda' needs CUDA"):
+        render_gaussians(torch.zeros(n, 3), torch.zeros(n, 6), torch.zeros(n, 3),
+                         torch.zeros(n, 16, 3), torch.ones(n), cam,
+                         torch.zeros(3), config=RasterConfig(backend="cuda"))
+    with pytest.raises(ValueError, match="CUDA payload"):
+        composite.composite_fwd_cuda(
+            torch.zeros(16, 128), torch.zeros(4, dtype=torch.int32),
+            torch.zeros(4, dtype=torch.int32), 2, 2)
+    with pytest.raises(NotImplementedError):
+        render_gaussians(torch.zeros(n, 3), torch.zeros(n, 6), torch.zeros(n, 3),
+                         torch.zeros(n, 16, 3), torch.ones(n), cam,
+                         torch.zeros(3), config=RasterConfig(backend="torch"),
+                         tile_shard_mode="owner")
