@@ -4,8 +4,9 @@
 
 Phases, each of which exits non-zero on failure:
 
-  1. build: nvcc compiles manus_tpu_torch/csrc/*.cu for sm_90a into
-     manus_tpu_torch/_build/ (one nvcc per source, in parallel);
+  1. build: nvcc compiles manus_tpu_torch/csrc/*.cu (composite, conv3x3,
+     lpips_head) for sm_90a into manus_tpu_torch/_build/ (one nvcc per
+     source, in parallel);
   2. scene: bench.py's primary hand workload built with the port:
      65,536 gaussians at 512x512, one view, procedural_skeleton(8), point
      skin weights, random weights from fixed seeds. The ground truth is
@@ -18,8 +19,24 @@ Phases, each of which exits non-zero on failure:
      on d_payload under a random image cotangent and a non-zero
      background), and their times;
   5. slice: STEPS training steps through make_train_step under bench.py's
-     raster configuration; the loss must be finite and fall, and each
-     kernel's launch count over the run must equal the number of steps.
+     raster configuration, without LPIPS; the loss must be finite and
+     fall, and each composite kernel's launch count over the run must
+     equal the number of steps;
+  6. lpips kernels: the seeded random-feature VGG16 (bench.py's
+     random_lpips_params(0, "vgg")) on a perturbed copy of the scene's
+     512x512 gt image and on the gt: each of the 13 conv layers' kernel
+     against its plain version on the same input, the dx kernel under a
+     random bf16 cotangent, the head kernels at each of the 5 stages,
+     the image conv (kernel 7) at one layer's shape, and lpips_distance
+     with its image gradient through the kernels against the plain chain
+     (run on the CPU); per-layer times, plain times, library times and
+     bounds;
+  7. lpips slice: STEPS steps with lpips_loss on from step 0 (losses
+     rgb/ssim/isotropy/lpips at 0.8/0.2/0.1/0.1, the gt features built
+     once with lpips_features, as bench.py does); the loss must be finite
+     and fall, loss/lpips_loss > 0 at every step, and the launches over
+     the run must be 13 conv, 13 dx, 5 head forward and 5 head backward
+     per step, and one of each composite kernel.
 
 The last lines are a {"kernels": [...]} JSON line, the card's name and
 power limit from nvidia-smi, and {"ok": true, "device": {...}}.
@@ -49,6 +66,7 @@ from manus_tpu_torch.models.gaussians import (
     get_opacity,
     init_gaussian_model,
 )
+from manus_tpu_torch.ops import conv as conv_mod
 from manus_tpu_torch.ops.rasterizer import composite
 from manus_tpu_torch.ops.rasterizer.api import (
     RasterConfig,
@@ -59,6 +77,7 @@ from manus_tpu_torch.ops.rasterizer.binning import bin_gaussians
 from manus_tpu_torch.ops.rasterizer.payload import NUM_LIVE, build_payload
 from manus_tpu_torch.ops.rasterizer.projection import TILE, project_gaussians
 from manus_tpu_torch.ops.skinning import bone_deformation_transforms
+from manus_tpu_torch.train import lpips as lpips_mod
 from manus_tpu_torch.train.workloads import (
     forward_gaussians,
     init_train_state,
@@ -87,10 +106,61 @@ HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 # step and colour accumulation; the backward's recomputation, gradient
 # terms and its share of the nine-value warp reduction.
 FWD_FLOP_PER_PAIR, BWD_FLOP_PER_PAIR = 32, 61
+# The LPIPS kernels against their plain version on the same inputs (bf16
+# outputs, fp32 sums in another order): a value may round one bf16 ulp
+# (at most 2^-7 of it) the other way, and a ReLU output may be 0 on one
+# side where the pre-activation is within fp32 rounding of 0, which
+# BF16_FLOOR of the layer's largest value covers. The head forward: fp32
+# sums of up to 17M terms in another order, 1e-4 relative. The distance
+# through 13 bf16 layers, kernels against the plain chain: a one-ulp
+# rounding moves one value by 2^-8 and the head averages over every pixel
+# and channel, so the rare flips of each layer move the distance far less
+# than 1e-3 relative. The image gradient also goes through the dx chain's
+# ReLU masks, where a pre-activation within rounding of 0 flips a mask:
+# an O(1) change at that pixel, so a cosine of at least 0.998 and a norm
+# within 1e-2.
+BF16_REL, BF16_FLOOR, HEAD_FWD_RTOL = 2.0 ** -7, 1e-3, 1e-4
+DIST_RTOL, GRAD_COS, GRAD_NORM_RTOL = 1e-3, 0.998, 1e-2
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet).
+BF16_FLOP_PER_S = 989e12
+# fp32 operations per feature element in csrc/lpips_head.cu: the forward's
+# two squared norms, two divisions, difference, square, weight and sum;
+# the backward's norms, divisions, gradient, two dot products and two
+# outputs.
+HEAD_FWD_FLOP, HEAD_BWD_FLOP = 10, 21
+LPIPS_SEED = 0
 REPLACES = {
     "composite_fwd": "manus_tpu/ops/rasterizer/pallas_backend.py:105",
     "composite_bwd": "manus_tpu/ops/rasterizer/pallas_backend.py:258",
+    "conv3x3_layout": "manus_tpu/ops/conv_pallas.py:325",
+    "conv3x3_layout_dx": "manus_tpu/ops/conv_pallas.py:422",
+    "lpips_head_fwd": "manus_tpu/ops/conv_pallas.py:574",
+    "lpips_head_bwd": "manus_tpu/ops/conv_pallas.py:590",
+    "conv3x3": "manus_tpu/ops/conv_pallas.py:82",
 }
+SOURCES = {
+    "composite_fwd": "manus_tpu_torch/csrc/composite.cu",
+    "composite_bwd": "manus_tpu_torch/csrc/composite.cu",
+    "conv3x3_layout": "manus_tpu_torch/csrc/conv3x3.cu",
+    "conv3x3_layout_dx": "manus_tpu_torch/csrc/conv3x3.cu",
+    "lpips_head_fwd": "manus_tpu_torch/csrc/lpips_head.cu",
+    "lpips_head_bwd": "manus_tpu_torch/csrc/lpips_head.cu",
+    "conv3x3": "manus_tpu_torch/csrc/conv3x3.cu",
+}
+# The wrapper whose count says how often each kernel ran.
+COUNTERS = {
+    "composite_fwd": composite.composite_fwd_cuda,
+    "composite_bwd": composite.composite_bwd_cuda,
+    "conv3x3_layout": conv_mod.conv3x3_layout_cuda,
+    "conv3x3_layout_dx": conv_mod.conv3x3_layout_dx_cuda,
+    "lpips_head_fwd": conv_mod.head_fwd_cuda,
+    "lpips_head_bwd": conv_mod.head_bwd_cuda,
+    "conv3x3": conv_mod.conv3x3_image_cuda,
+}
+# Launches per view and step of each kernel on the LPIPS step.
+PER_STEP = {"composite_fwd": 1, "composite_bwd": 1, "conv3x3_layout": 13,
+            "conv3x3_layout_dx": 13, "lpips_head_fwd": 5, "lpips_head_bwd": 5,
+            "conv3x3": 0}
 
 
 class PhaseFailed(Exception):
@@ -327,26 +397,29 @@ def plain_backward_ms(pay, offs, cnts, ntx, nty, d_rgb, d_tf, reps=3):
     return total / reps
 
 
-def slice_phase(cfg, state, batch):
-    """STEPS train steps through the CUDA kernels."""
-    train_step = make_train_step(cfg, extent=1.0, articulated=True)
-    kernels = (composite.composite_fwd_cuda, composite.composite_bwd_cuda)
+def slice_phase(cfg, state, batch, lpips_params=None):
+    """STEPS train steps through the CUDA kernels, the LPIPS term on when
+    lpips_params is given. Returns ({kernel: launches}, median ms/step)."""
+    train_step = make_train_step(cfg, extent=1.0, articulated=True,
+                                 lpips_params=lpips_params)
+    tag = "slice" if lpips_params is None else "lpips slice"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels:
-        k.launches = 0
-    losses, times, metrics = [], [], {}
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    losses, lpips_parts, times, metrics = [], [], [], {}
     for _ in range(STEPS):
         t0 = time.perf_counter()
         state, metrics = train_step(state, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(metrics["loss"].item())
-    launches = {"composite_fwd": kernels[0].launches,
-                "composite_bwd": kernels[1].launches}
+        if lpips_params is not None:
+            lpips_parts.append(metrics["loss/lpips_loss"].item())
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     ms = statistics.median(times[WARMUP:])
-    print(f"slice: {STEPS} steps, loss {losses[0]:.6f} -> {losses[-1]:.6f}, "
+    print(f"{tag}: {STEPS} steps, loss {losses[0]:.6f} -> {losses[-1]:.6f}, "
           f"median {ms:.3f} ms/step after {WARMUP} warmup (min "
           f"{min(times[WARMUP:]):.3f}, max {max(times[WARMUP:]):.3f}), "
           f"pair_overflow {int(metrics['pair_overflow'])} far "
@@ -355,9 +428,262 @@ def slice_phase(cfg, state, batch):
           f"peak {peak_mb:.1f} MiB, launches {launches}")
     check(all(math.isfinite(x) for x in losses), "non-finite loss")
     check(losses[-1] < losses[0], "the loss did not fall")
+    if lpips_params is not None:
+        print(f"{tag}: loss/lpips_loss {lpips_parts[0]:.6f} -> "
+              f"{lpips_parts[-1]:.6f} (min {min(lpips_parts):.6f})")
+        check(all(x > 0 and math.isfinite(x) for x in lpips_parts),
+              "loss/lpips_loss is not > 0 at every step")
     for name, n in launches.items():
-        check(n == STEPS * VIEWS, f"{name} launched {n} times in {STEPS} steps")
-    return launches
+        per_step = PER_STEP[name] if lpips_params is not None \
+            else PER_STEP[name] * name.startswith("composite")
+        check(n == per_step * STEPS * VIEWS,
+              f"{tag}: {name} launched {n} times in {STEPS} steps")
+    return launches, ms
+
+
+def bf16_check(got, want, what):
+    """Max abs error of a bf16 kernel output against its plain version,
+    and the share of values that differ; fails beyond the bf16 rule
+    (BF16_REL of the larger magnitude, plus BF16_FLOOR of want's max)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    limit = BF16_REL * torch.maximum(got.abs(), want.abs()) \
+        + BF16_FLOOR * want.abs().max()
+    over = int((err > limit).sum())
+    check(over == 0, f"{what}: {over} values beyond the bf16 tolerance, "
+                     f"max abs err {err.max().item()}")
+    return err.max().item(), (err > 0).float().mean().item()
+
+
+def bound_ms(nbytes, flops, peak_flop_per_s):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak_flop_per_s
+    return max(t_b, t_f) * 1e3, t_b * 1e3, t_f * 1e3
+
+
+def conv_library_ms(x_hwc, w_hwio, b, reps=20):
+    """F.conv2d on channels-last bf16 for one layer (a yardstick only)."""
+    x = x_hwc.permute(2, 0, 1)[None].to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    w = w_hwio.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    b = b.to(torch.bfloat16)
+    return cuda_ms(lambda: torch.nn.functional.conv2d(x, w, b, padding=1), reps)
+
+
+def dx_library_ms(g_hwc, w_hwio, reps=20):
+    """torch.nn.grad.conv2d_input on channels-last bf16 (a yardstick)."""
+    g = g_hwc.permute(2, 0, 1)[None].to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    w = w_hwio.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    size = (1, w.shape[1], g.shape[2], g.shape[3])
+    return cuda_ms(lambda: torch.nn.grad.conv2d_input(size, w, g, padding=1),
+                   reps)
+
+
+class Sweep:
+    """Per-launch numbers of one kernel over the layers of a sweep."""
+
+    def __init__(self, name):
+        self.name, self.rows = name, []
+
+    def add(self, layer, err, share, ms, plain_ms, bounds, library_ms):
+        self.rows.append(dict(layer=layer, err=err, share=share, ms=ms,
+                              plain_ms=plain_ms, bound=bounds,
+                              library_ms=library_ms))
+        lib = "-" if library_ms is None else f"{library_ms:.4f}"
+        print(f"  {self.name} {layer}: err {err:.3e} (differing share "
+              f"{share:.2e}) ms {ms:.4f} plain {plain_ms:.4f} bound "
+              f"{bounds[0]:.4f} (bytes {bounds[1]:.4f}, ops {bounds[2]:.4f}) "
+              f"library {lib}")
+
+    def result(self):
+        tot = lambda k: sum(r[k] for r in self.rows)  # noqa: E731
+        libs = [r["library_ms"] for r in self.rows]
+        t_b = sum(r["bound"][1] for r in self.rows)
+        t_f = sum(r["bound"][2] for r in self.rows)
+        out = dict(max_abs_err=max(r["err"] for r in self.rows),
+                   ms=tot("ms"), plain_ms=tot("plain_ms"),
+                   bound_ms=sum(r["bound"][0] for r in self.rows),
+                   bound_by="bytes" if t_b >= t_f else "operations",
+                   library_ms=None if None in libs else sum(libs))
+        print(f"{self.name}: sweep of {len(self.rows)} launches: ms "
+              f"{out['ms']:.4f} plain {out['plain_ms']:.3f} bound "
+              f"{out['bound_ms']:.4f} ({out['bound_by']}) library "
+              f"{out['library_ms']} max abs err {out['max_abs_err']:.3e}")
+        return out
+
+
+def lpips_kernel_phase(batch, dev):
+    """The LPIPS kernels against their plain versions at 512x512."""
+    params = lpips_mod.random_lpips_params(LPIPS_SEED, device=dev)
+    packed = lpips_mod.pack_lpips_params(params)
+    gt = batch["rgb"][0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pred = (gt + 0.1 * torch.randn(gt.shape, device=dev, generator=gen)
+            ).clamp(0, 1)
+    layouts = lpips_mod._vgg_stage_layouts(HEIGHT, WIDTH)
+    sweeps = {n: Sweep(n) for n in ("conv3x3_layout", "conv3x3_layout_dx",
+                                    "lpips_head_fwd", "lpips_head_bwd",
+                                    "conv3x3")}
+    feats = {}
+    with torch.no_grad():
+        for tag, img in (("gt", gt), ("pred", pred)):
+            x = (img * 2.0 - 1.0 - packed.shift) / packed.scale
+            xl, out = None, []
+            for si, stage in enumerate(lpips_mod.VGG_PLAN["stages"]):
+                L = layouts[si]
+                xl = conv_mod.maxpool2x2_layout(xl, layouts[si - 1], L) \
+                    if si else conv_mod.build_layout(x, L)
+                for li in range(len(stage)):
+                    p = packed.conv(si, li)
+                    y = conv_mod.conv3x3_layout_cuda(xl, p.w, p.b, True, L)
+                    if tag == "pred":
+                        conv_layer_checks(sweeps, params, si, li, xl, y, p, L,
+                                          gen)
+                    if (si, li) == (1, 0) and tag == "pred":
+                        image_conv_check(sweeps["conv3x3"], params, xl, p, L)
+                    xl = y
+                out.append(xl)
+            feats[tag] = out
+        for si, L in enumerate(layouts):
+            head_checks(sweeps, feats["pred"][si], feats["gt"][si],
+                        packed.lin_eff(si, L), si, L, gen)
+    results = {n: sw.result() for n, sw in sweeps.items()}
+    distance_check(params, pred, gt)
+    return params, results
+
+
+def conv_layer_checks(sweeps, params, si, li, xl, y, p, L, gen):
+    """One layer: the conv kernel and the dx kernel against their plain
+    versions, with times and bounds. The bounds count the bytes of the
+    h*w pixels' real channels, not the layout's zero rows and padding
+    channels, which only this layout needs."""
+    layer = f"conv{si}_{li}"
+    w_hwio = params[f"{layer}_w"]
+    ci, co = w_hwio.shape[2], w_hwio.shape[3]
+    px = L.h * L.w
+    flops = 2.0 * px * 9 * ci * co
+    w_bytes = 2 * 9 * ci * co
+    y_ref = conv_mod.conv3x3_layout_torch(xl, p.w, p.b, True, L)
+    err, share = bf16_check(y, y_ref, f"{layer} conv")
+    ms = cuda_ms(lambda: conv_mod.conv3x3_layout_cuda(xl, p.w, p.b, True, L), 20)
+    plain = cuda_ms(lambda: conv_mod.conv3x3_layout_torch(xl, p.w, p.b, True, L), 3)
+    nbytes = 2 * px * (ci + co) + w_bytes + 4 * co
+    lib = conv_library_ms(conv_mod.unlayout(xl, L)[..., :ci], w_hwio,
+                          params[f"{layer}_b"])
+    sweeps["conv3x3_layout"].add(layer, err, share, ms, plain,
+                                 bound_ms(nbytes, flops, BF16_FLOP_PER_S), lib)
+
+    g = torch.randn(L.rows, p.co, device=y.device, generator=gen).to(
+        torch.bfloat16)
+    dx = conv_mod.conv3x3_layout_dx_cuda(g, y, p.w_t, L)
+    dx_ref = conv_mod.conv3x3_layout_torch(g, p.w_t, None, False, L,
+                                           mask_by=y)
+    err, share = bf16_check(dx, dx_ref, f"{layer} dx")
+    ms = cuda_ms(lambda: conv_mod.conv3x3_layout_dx_cuda(g, y, p.w_t, L), 20)
+    plain = cuda_ms(lambda: conv_mod.conv3x3_layout_torch(
+        g, p.w_t, None, False, L, mask_by=y), 3)
+    nbytes = 2 * px * (2 * co + ci) + w_bytes
+    gm = torch.where(y > 0, g, 0)
+    lib = dx_library_ms(conv_mod.unlayout(gm, L), w_hwio)
+    sweeps["conv3x3_layout_dx"].add(layer, err, share, ms, plain,
+                                    bound_ms(nbytes, flops, BF16_FLOP_PER_S),
+                                    lib)
+
+
+def image_conv_check(sweep, params, xl, p, L):
+    """Kernel 7, the conv of a plain [H, W, Ci] image, at this layer's
+    shape, against build_layout -> plain conv -> unlayout."""
+    x = conv_mod.unlayout(xl, L).float()
+    y = conv_mod.conv3x3_raw(x, p, True)
+    Li = conv_mod._image_layout(x, p)
+    xi = conv_mod.build_layout(x, Li)
+    y_ref = conv_mod.unlayout(conv_mod.conv3x3_layout_torch(
+        xi, p.w, p.b, True, Li), Li)[..., : p.n_out]
+    err, share = bf16_check(y, y_ref, "conv3x3 image")
+    ms = cuda_ms(lambda: conv_mod.conv3x3_raw(x, p, True), 20)
+    plain = cuda_ms(lambda: conv_mod.unlayout(conv_mod.conv3x3_layout_torch(
+        conv_mod.build_layout(x, Li), p.w, p.b, True, Li), Li), 3)
+    h, w, ci = x.shape
+    flops = 2.0 * h * w * 9 * p.n_in * p.n_out
+    nbytes = (4 * h * w * ci + 2 * 9 * p.n_in * p.n_out + 4 * p.n_out
+              + 2 * h * w * p.n_out)
+    lib = conv_library_ms(x, params["conv1_0_w"], params["conv1_0_b"])
+    sweep.add(f"conv1_0 image {h}x{w}x{ci}", err, share, ms, plain,
+              bound_ms(nbytes, flops, BF16_FLOP_PER_S), lib)
+
+
+def head_checks(sweeps, a, b, lin_eff, si, L, gen):
+    """One stage's head kernels against their plain versions. The bounds
+    count the h*w pixels' features (every stage's channels are real), not
+    the layout's zero rows."""
+    px, c = L.h * L.w, a.shape[1]
+    got = conv_mod.head_fwd_cuda(a, b, lin_eff).item()
+    want = conv_mod.head_fwd_torch(a, b, lin_eff).item()
+    err = abs(got - want)
+    check(err <= HEAD_FWD_RTOL * abs(want) and want > 0,
+          f"stage {si} head forward {got} against {want}")
+    ms = cuda_ms(lambda: conv_mod.head_fwd_cuda(a, b, lin_eff), 20)
+    plain = cuda_ms(lambda: conv_mod.head_fwd_torch(a, b, lin_eff), 3)
+    nbytes = 4 * px * c + 4 * c
+    sweeps["lpips_head_fwd"].add(
+        f"stage {si}", err, 0.0, ms, plain,
+        bound_ms(nbytes, HEAD_FWD_FLOP * px * c, FP32_FLOP_PER_S), None)
+
+    ct = torch.rand((), device=a.device, generator=gen) + 0.5
+    da, db = conv_mod.head_bwd_cuda(a, b, lin_eff, ct)
+    da_ref, db_ref = conv_mod.head_bwd_torch(a, b, lin_eff * ct)
+    err_a, share_a = bf16_check(da, da_ref, f"stage {si} head da")
+    err_b, share_b = bf16_check(db, db_ref, f"stage {si} head db")
+    ms = cuda_ms(lambda: conv_mod.head_bwd_cuda(a, b, lin_eff, ct), 20)
+    plain = cuda_ms(lambda: conv_mod.head_bwd_torch(a, b, lin_eff * ct), 3)
+    nbytes = 8 * px * c + 4 * c + 4
+    sweeps["lpips_head_bwd"].add(
+        f"stage {si}", max(err_a, err_b), max(share_a, share_b), ms, plain,
+        bound_ms(nbytes, HEAD_BWD_FLOP * px * c, FP32_FLOP_PER_S), None)
+
+
+def distance_check(params, pred, gt):
+    """lpips_distance and its image gradient through the kernels against
+    the plain chain, which runs on the CPU (the wrappers take the plain
+    versions for CPU tensors)."""
+    def value_and_grad(p, img, ref):
+        x = img.detach().clone().requires_grad_(True)
+        d = lpips_mod.lpips_distance(p, x, ref)
+        (g,) = torch.autograd.grad(d, [x])
+        return d.item(), g.float().cpu().reshape(-1)
+
+    t0 = time.perf_counter()
+    d_k, g_k = value_and_grad(params, pred, gt)
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    d_p, g_p = value_and_grad(cpu_params, pred.cpu(), gt.cpu())
+    rel = abs(d_k - d_p) / abs(d_p)
+    cos = (g_k @ g_p / (g_k.norm() * g_p.norm())).item()
+    norm_err = abs(g_k.norm().item() / g_p.norm().item() - 1)
+    print(f"lpips_distance 512x512: kernels {d_k:.7f} plain (CPU) {d_p:.7f} "
+          f"rel err {rel:.3e} (tolerance {DIST_RTOL}); image gradient cosine "
+          f"{cos:.6f} (>= {GRAD_COS}), relative norm error {norm_err:.3e} "
+          f"(<= {GRAD_NORM_RTOL}); {time.perf_counter() - t0:.1f} s")
+    check(d_p > 0 and rel <= DIST_RTOL, f"lpips_distance rel err {rel}")
+    check(cos >= GRAD_COS and norm_err <= GRAD_NORM_RTOL,
+          f"lpips image gradient: cosine {cos}, norm error {norm_err}")
+
+
+def lpips_batch(cfg, batch, params):
+    """The scene's config and batch with the LPIPS term on, the gt
+    features built once (as bench.py's step does)."""
+    cfg = dataclasses.replace(
+        cfg, loss=dataclasses.replace(
+            cfg.loss, losses=("rgb_loss", "ssim_loss", "isotropic_reg",
+                              "lpips_loss"),
+            loss_weight=(0.8, 0.2, 0.1, 0.1)))
+    with torch.no_grad():
+        per_view = [lpips_mod.lpips_features(params, batch["rgb"][i])
+                    for i in range(VIEWS)]
+    feats = tuple(torch.stack([f[s] for f in per_view])
+                  for s in range(len(per_view[0])))
+    return cfg, dict(batch, lpips_gt_feats=feats)
 
 
 def main() -> int:
@@ -371,7 +697,7 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["composite"])
+    logs = cuda_build.build(["composite", "conv3x3", "lpips_head"])
     print(f"build: {time.perf_counter() - t0:.1f} s into {cuda_build.BUILD_DIR}")
     for log in logs.values():
         for line in log.splitlines():
@@ -388,14 +714,25 @@ def main() -> int:
     pay, bins = scene_payload(cfg, model, batch, dev)
     results = kernel_phase(pay, bins, dev)
     del pay, bins
-    state = init_train_state(model)
-    launches = slice_phase(cfg, state, batch)
+    launches, plain_step_ms = slice_phase(cfg, init_train_state(model), batch)
+
+    print(f"lpips kernels at {WIDTH}x{HEIGHT}, random-feature VGG16 seed "
+          f"{LPIPS_SEED}:")
+    params, lpips_results = lpips_kernel_phase(batch, dev)
+    results.update(lpips_results)
+    lcfg, lbatch = lpips_batch(cfg, batch, params)
+    lpips_launches, lpips_step_ms = slice_phase(
+        lcfg, init_train_state(model), lbatch, params)
+    print(f"lpips part of the step: {lpips_step_ms - plain_step_ms:.3f} ms "
+          f"(median {lpips_step_ms:.3f} with LPIPS, {plain_step_ms:.3f} "
+          "without)")
+    launches.update({n: lpips_launches[n] for n in lpips_results})
 
     kernels = [
-        dict(name=name, route="cuda", source="manus_tpu_torch/csrc/composite.cu",
+        dict(name=name, route="cuda", source=SOURCES[name],
              replaces=REPLACES[name], launches=launches[name],
-             **results[name], library_ms=None)
-        for name in ("composite_fwd", "composite_bwd")
+             **{"library_ms": None, **results[name]})
+        for name in COUNTERS
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

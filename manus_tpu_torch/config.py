@@ -23,6 +23,12 @@ class DatasetConfig:
 class LossConfig:
     losses: Tuple[str, ...] = ("rgb_loss", "ssim_loss", "isotropic_reg")
     loss_weight: Tuple[float, ...] = (0.8, 0.2, 0.1)
+    # k > 1 average-pools pred and gt k x k before the VGG (opt-in; the
+    # reference runs LPIPS at full resolution).
+    lpips_downsample: int = 1
+    # conv engine: "auto" or "pallas", both the layout conv chain (the
+    # port's only one; make_train_step rejects any other).
+    lpips_conv: str = "auto"
 
 
 @dataclasses.dataclass
@@ -61,8 +67,9 @@ def _tuned_raster(raster: RasterOptions) -> RasterOptions:
 def hand_config() -> ExperimentConfig:
     """HAND_GAUSSIAN (config/HAND_GAUSSIAN.yaml + scripts/train/train_hands.sh).
 
-    Its loss list names lpips_loss, which this port does not run yet:
-    callers drop it, as the JAX trainer does without pretrained weights.
+    Its loss list names lpips_loss at weight 0.1: the step runs the
+    VGG16-LPIPS term from model.start_lpips_iter (1000) on, given
+    lpips_params (make_train_step), and adds 0 before that.
     """
     cfg = ExperimentConfig(workload="hand")
     cfg.loss = LossConfig(

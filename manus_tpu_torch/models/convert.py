@@ -1,8 +1,8 @@
-"""Carry models and cameras across as numpy arrays.
+"""Carry models, cameras and LPIPS weights across as numpy arrays.
 
-The JAX package's GaussianParams leaves and Camera fields have the same
-names and shapes here, so a model or camera converted to numpy on one side
-loads on the other.
+The JAX package's GaussianParams leaves, Camera fields and LPIPS params
+keys have the same names and shapes here, so a model, camera or LPIPS
+params dict converted to numpy on one side loads on the other.
 """
 from __future__ import annotations
 
@@ -49,3 +49,15 @@ def camera_from_numpy(d: dict, device=None) -> Camera:
     fields = {f: torch.tensor(np.asarray(d[f], np.float32), device=device)
               for f in TENSOR_FIELDS}
     return Camera(**fields, width=int(d["width"]), height=int(d["height"]))
+
+
+def lpips_params_from_numpy(d: dict, device=None) -> dict:
+    """{conv{i}_{j}_w (HWIO), conv{i}_{j}_b, lin{k}_w} arrays -> float32
+    tensors on `device`, under the same keys."""
+    device = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
+            for k, v in d.items()}
+
+
+def lpips_params_to_numpy(params: dict) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}

@@ -1,0 +1,271 @@
+"""The VGG16-LPIPS perceptual distance on the layout conv chain.
+
+Counterpart of the JAX package's train/lpips.py, VGG16 path: the
+backbone's 13 3x3 convs run as the layout chain of ops/conv.py (bf16
+features, fp32 accumulation; the JAX package's lpips_conv="pallas"
+engine), features are taken after the ReLU of each of the 5 stages,
+unit-normalised along channels, squared differences weighted by the 1x1
+heads `lin{k}_w`, averaged over pixels and summed over stages.
+
+Params are a dict with the JAX package's keys and layouts:
+conv{stage}_{layer}_w [3, 3, Ci, Co] (HWIO), conv{stage}_{layer}_b [Co],
+lin{stage}_w [C]. The weights are frozen; `pack_lpips_params` packs them
+for the kernels once per dict (bf16 forward and dx weights, channels
+padded to 16), and the distance functions accept the dict or the packed
+form. Pretrained weights load from the npz of
+scripts/convert_lpips_weights.py; without them, the seeded random-feature
+VGG16 of `random_lpips_params` draws the same weights as the JAX package's
+from the same seed.
+"""
+from __future__ import annotations
+
+import os
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from manus_tpu_torch.ops.conv import (
+    ConvWeights,
+    StageLayout,
+    build_layout,
+    conv3x3_layout,
+    head_stage_layout,
+    maxpool2x2_layout,
+    pack_conv3x3,
+)
+from manus_tpu_torch.utils.device import resolve_device
+
+# VGG16: 5 blocks of 3x3 convs (out_channels, kernel, stride, pad), a 2x2/2
+# max pool before every block but the first; LPIPS taps each block's
+# post-ReLU output.
+VGG_PLAN = dict(
+    stages=[
+        [(64, 3, 1, 1)] * 2,
+        [(128, 3, 1, 1)] * 2,
+        [(256, 3, 1, 1)] * 3,
+        [(512, 3, 1, 1)] * 3,
+        [(512, 3, 1, 1)] * 3,
+    ],
+    pool=(2, 2),
+    pool_before=(1, 2, 3, 4),
+)
+
+SHIFT = np.array([-0.030, -0.088, -0.188], np.float32)
+SCALE = np.array([0.458, 0.448, 0.450], np.float32)
+
+# The conv engine: the layout chain, which the JAX config calls "pallas".
+ENGINE = "pallas"
+
+
+def infer_arch(params) -> str:
+    """VGG16's first stage has two convs (conv0_1_w), AlexNet's one."""
+    keys = params.source if isinstance(params, PackedLpips) else params
+    return "vgg" if "conv0_1_w" in keys else "alex"
+
+
+def resolve_lpips_engine(lpips_conv: str, params) -> str:
+    """The conv engine for the loss and the gt-feature cache. The port has
+    one, the layout chain ("auto" and "pallas" name it); the JAX package's
+    fp32 and XLA engines, and AlexNet, belong to the evaluation slice."""
+    if lpips_conv not in ("auto", ENGINE):
+        raise NotImplementedError(
+            f"lpips_conv={lpips_conv!r} is not ported; the port runs the "
+            f"layout conv chain ('auto' or '{ENGINE}')")
+    if infer_arch(params) != "vgg":
+        raise NotImplementedError("only the VGG16 LPIPS is ported")
+    return ENGINE
+
+
+def random_lpips_params(seed: int = 0, arch: str = "vgg",
+                        device=None) -> dict:
+    """Seeded He-init VGG16, the random-feature fallback: the same numpy
+    draws in the same order as the JAX package's, so the same seed gives
+    the same float32 weights."""
+    if arch != "vgg":
+        raise NotImplementedError(f"LPIPS arch {arch!r} is not ported")
+    device = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    params = {}
+    c_in = 3
+    for si, stage in enumerate(VGG_PLAN["stages"]):
+        for li, (c_out, k, _, _) in enumerate(stage):
+            fan = k * k * c_in
+            w = rng.normal(0, np.sqrt(2.0 / fan), (k, k, c_in, c_out))
+            params[f"conv{si}_{li}_w"] = torch.tensor(
+                w.astype(np.float32), device=device)
+            params[f"conv{si}_{li}_b"] = torch.zeros(c_out, device=device)
+            c_in = c_out
+        lin = rng.uniform(0, 1, (c_in,)) / c_in
+        params[f"lin{si}_w"] = torch.tensor(lin.astype(np.float32),
+                                            device=device)
+    return params
+
+
+def load_lpips_params(path: str, device=None) -> Optional[dict]:
+    """LPIPS weights from an npz of scripts/convert_lpips_weights.py (keys
+    conv{i}_{j}_w HWIO, conv{i}_{j}_b, lin{k}_w); None if there is none."""
+    if not path or not os.path.exists(path):
+        return None
+    device = resolve_device(device)
+    data = np.load(path)
+    return {k: torch.tensor(np.asarray(data[k], np.float32), device=device)
+            for k in data.files}
+
+
+def resolve_lpips_params_mode(weights_path: str, allow_fallback: bool = True,
+                              seed: int = 0, log=print, arch: str = "vgg",
+                              device=None):
+    """(params, mode): the pretrained npz if there is one, else the seeded
+    random-feature net, else (None, "off"). mode is "<arch>:pretrained",
+    "<arch>:random-feature" or "off"."""
+    params = load_lpips_params(weights_path, device)
+    if params is not None:
+        arch = infer_arch(params)
+        log(f"[lpips] loaded pretrained {arch} weights from {weights_path}")
+        return params, f"{arch}:pretrained"
+    if allow_fallback:
+        log(f"[lpips] WARNING: no pretrained weights "
+            f"({weights_path or 'weights path unset'}); using seeded "
+            f"random-feature {arch}. Values are NOT comparable with "
+            "published LPIPS; convert real weights with "
+            "scripts/convert_lpips_weights.py.")
+        return random_lpips_params(seed, arch, device), \
+            f"{arch}:random-feature"
+    log("[lpips] disabled: no weights and fallback off; lpips is 0")
+    return None, "off"
+
+
+# ---------------------------------------------------------------------------
+# Packed weights.
+
+
+class PackedLpips(NamedTuple):
+    """A VGG16-LPIPS params dict packed for the kernels: one ConvWeights
+    per conv in VGG_PLAN order, the heads as fp32 [C] (padded like the
+    stage's features), the input normalisation on the weights' device, and
+    the dict it came from."""
+
+    convs: tuple
+    lins: tuple
+    shift: torch.Tensor
+    scale: torch.Tensor
+    source: dict
+    lin_eff_cache: dict  # (stage, h, w) -> lin / (h * w)
+
+    def conv(self, si: int, li: int) -> ConvWeights:
+        return self.convs[sum(len(s) for s in VGG_PLAN["stages"][:si]) + li]
+
+    def lin_eff(self, si: int, L: StageLayout):
+        """The stage's head with the spatial mean folded in, lin / (h*w)."""
+        key = (si, L.h, L.w)
+        out = self.lin_eff_cache.get(key)
+        if out is None:
+            out = self.lin_eff_cache[key] = self.lins[si] / float(L.h * L.w)
+        return out
+
+
+def pack_lpips_params(params) -> PackedLpips:
+    """Pack a VGG16-LPIPS params dict for the kernels (a PackedLpips is
+    returned as it is). A caller that runs the loss every step packs once
+    and passes the result, as make_train_step does; the distance
+    functions pack a dict on each call."""
+    if isinstance(params, PackedLpips):
+        return params
+    if infer_arch(params) != "vgg":
+        raise NotImplementedError("only the VGG16 LPIPS is ported")
+    convs, lins = [], []
+    for si, stage in enumerate(VGG_PLAN["stages"]):
+        for li in range(len(stage)):
+            convs.append(pack_conv3x3(params[f"conv{si}_{li}_w"],
+                                      params[f"conv{si}_{li}_b"]))
+        lin = params[f"lin{si}_w"].detach().to(torch.float32)
+        lins.append(torch.nn.functional.pad(lin, (0, convs[-1].co
+                                                  - lin.shape[0])))
+    dev = lins[0].device
+    return PackedLpips(tuple(convs), tuple(lins),
+                       torch.as_tensor(SHIFT, device=dev),
+                       torch.as_tensor(SCALE, device=dev), params, {})
+
+
+# ---------------------------------------------------------------------------
+# The distance.
+
+
+def _vgg_stage_layouts(h: int, w: int) -> list:
+    """One StageLayout per VGG stage for an h x w input."""
+    layouts = []
+    for si, stage in enumerate(VGG_PLAN["stages"]):
+        if si in VGG_PLAN["pool_before"]:
+            h, w = h // 2, w // 2
+        c_max = max(c for c, *_ in stage)
+        layouts.append(StageLayout(h, w, max(c_max, 128)))
+    return layouts
+
+
+def vgg16_features(params, x) -> list:
+    """The 5 post-ReLU VGG16 stage features of x ([H, W, 3] in [-1, 1]),
+    as [(layout array [L.rows, C] bf16, StageLayout), ...]."""
+    packed = pack_lpips_params(params)
+    x = (x - packed.shift) / packed.scale
+    layouts = _vgg_stage_layouts(x.shape[0], x.shape[1])
+    feats = []
+    xl = None
+    for si, stage in enumerate(VGG_PLAN["stages"]):
+        L = layouts[si]
+        if si in VGG_PLAN["pool_before"]:
+            xl = maxpool2x2_layout(xl, layouts[si - 1], L)
+        else:
+            xl = build_layout(x, L)
+        for li in range(len(stage)):
+            xl = conv3x3_layout(xl, packed.conv(si, li), True, L)
+        feats.append((xl, L))
+    return feats
+
+
+def _lpips_head_layout(params, f1: list, f2: list):
+    """The head over layout-form stage features: rows that hold no pixel
+    are zero in both and add nothing; the mean over the h*w pixels is
+    folded into lin (the head is linear in lin)."""
+    packed = pack_lpips_params(params)
+    total = None
+    for k, ((a, L), (b, _)) in enumerate(zip(f1, f2)):
+        d = head_stage_layout(a, b, packed.lin_eff(k, L))
+        total = d if total is None else total + d
+    return total
+
+
+def lpips_distance(params, img1, img2):
+    """LPIPS distance of two [H, W, 3] images in [0, 1] on the layout
+    chain (the JAX package's lpips_distance_pallas): an fp32 scalar,
+    differentiable in both images."""
+    params = pack_lpips_params(params)
+    f1 = vgg16_features(params, img1 * 2.0 - 1.0)
+    f2 = vgg16_features(params, img2 * 2.0 - 1.0)
+    return _lpips_head_layout(params, f1, f2)
+
+
+def pool_avg(img, k: int):
+    """k x k average pool of [H, W, C] (the loss.lpips_downsample knob),
+    shared by the loss and the gt-feature cache."""
+    if k <= 1:
+        return img
+    h, w = img.shape[0] // k * k, img.shape[1] // k * k
+    return img[:h, :w].reshape(h // k, k, w // k, k, img.shape[2]).mean(
+        dim=(1, 3))
+
+
+def lpips_features(params, img) -> list:
+    """The stage features of img ([H, W, 3] in [0, 1]) as layout arrays,
+    for the gt-feature cache; their layouts follow from the image shape."""
+    return [f for f, _ in vgg16_features(params, img * 2.0 - 1.0)]
+
+
+def lpips_distance_cached(params, img1, gt_feats: list):
+    """LPIPS distance between img1 and a gt whose features lpips_features
+    computed: the gt forward is skipped. Exact: no gradient flows to the
+    gt branch either way."""
+    params = pack_lpips_params(params)
+    f1 = vgg16_features(params, img1 * 2.0 - 1.0)
+    f2 = [(g.detach(), L) for g, (_, L) in zip(gt_feats, f1)]
+    return _lpips_head_layout(params, f1, f2)

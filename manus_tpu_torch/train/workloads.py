@@ -27,6 +27,7 @@ from manus_tpu_torch.models.gaussians import (
 from manus_tpu_torch.ops.mask_prune import points_outside_mask
 from manus_tpu_torch.ops.rasterizer.api import RasterConfig, render_gaussians
 from manus_tpu_torch.ops.skinning import skin_gaussians
+from manus_tpu_torch.train import lpips as lpips_mod
 from manus_tpu_torch.train import optim as optim_mod
 from manus_tpu_torch.utils import losses as loss_mod
 from manus_tpu_torch.utils.camera import index_camera
@@ -81,13 +82,17 @@ def make_raster_config(cfg: ExperimentConfig) -> RasterConfig:
 
 
 def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
-                    voxel_grid=None, mesh=None):
+                    voxel_grid=None, mesh=None, lpips_params=None):
     """The train step for one workload configuration.
 
     Batch (leading V = views per step): rgb [V,H,W,3], mask [V,H,W,1],
     cameras: a stacked Camera [V], bg [3], and for the hand bone_tf
-    [B,4,4] and keypoints [K,3]. Returns step(state, batch) ->
-    (state, metrics), metrics a dict of 0-d tensors.
+    [B,4,4] and keypoints [K,3]; optionally lpips_gt_feats, the gt's
+    LPIPS stage features (a tuple of per-stage tensors with a leading V,
+    lpips.lpips_features of each view), which skip the gt's VGG forward.
+    lpips_params (a VGG16-LPIPS params dict, packed here once) feeds the
+    lpips_loss term from step opts.start_lpips_iter on. Returns
+    step(state, batch) -> (state, metrics), metrics a dict of 0-d tensors.
     """
     del extent  # densification, which reads it, is not ported yet
     opts = cfg.model
@@ -101,14 +106,18 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
     loss_names = tuple(cfg.loss.losses)
     loss_weights = tuple(cfg.loss.loss_weight)
     width, height = cfg.dataset.width, cfg.dataset.height
+    if lpips_params is not None and "lpips_loss" in loss_names:
+        lpips_mod.resolve_lpips_engine(cfg.loss.lpips_conv, lpips_params)
+        lpips_params = lpips_mod.pack_lpips_params(lpips_params)
 
-    def loss_fn(params, m2d_off, active, skin_w, batch):
+    def loss_fn(params, m2d_off, active, skin_w, batch, lpips_on: bool):
         posed_xyz, posed_cov, tf = forward_gaussians(
             params, active, skin_w, batch.get("bone_tf"), opts)
         feats = get_features(params)
         opac = get_opacity(params)
         scaling = get_scaling(params, opts.isotropic_scaling)
         totals, radii, renders, parts, overflow = [], [], [], [], []
+        gt_feats = batch.get("lpips_gt_feats")
         for i in range(batch["rgb"].shape[0]):
             out = render_gaussians(
                 posed_xyz, posed_cov, params.xyz, feats, opac,
@@ -118,7 +127,11 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
             )
             total, part = loss_mod.compute_losses(
                 out.render, batch["rgb"][i], scaling, active, loss_names,
-                loss_weights, opts.condition_number)
+                loss_weights, opts.condition_number,
+                lpips_params=lpips_params, lpips_enabled=lpips_on,
+                lpips_downsample=cfg.loss.lpips_downsample,
+                lpips_gt_feats=None if gt_feats is None
+                else [f[i] for f in gt_feats])
             totals.append(total)
             radii.append(out.radii)
             renders.append(out.render)
@@ -140,7 +153,10 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
                                   for p in model.params))
         m2d = torch.zeros(v, n, 2, device=model.active.device,
                           requires_grad=True)
-        loss, aux = loss_fn(params, m2d, model.active, skin_w, batch)
+        # the start_lpips_iter gate (reference base.py:333-341)
+        lpips_on = state.step >= opts.start_lpips_iter
+        loss, aux = loss_fn(params, m2d, model.active, skin_w, batch,
+                            lpips_on)
         grads = torch.autograd.grad(loss, [*params, m2d], allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for g, x in zip(grads, [*params, m2d])]

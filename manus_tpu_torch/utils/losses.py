@@ -1,4 +1,5 @@
-"""Image losses and metrics: L1, windowed SSIM, PSNR, isotropy term.
+"""Image losses and metrics: L1, L2, windowed SSIM, PSNR, isotropy term,
+and the VGG16-LPIPS term (train/lpips.py).
 
 Reference numerics (Gaussian 11x11 window, sigma 1.5, C1=0.01^2,
 C2=0.03^2, zero padding). Images are [H, W, C].
@@ -10,9 +11,16 @@ import functools
 import numpy as np
 import torch
 
+from manus_tpu_torch.train import lpips
+
 
 def l1_loss(pred, gt, mean: bool = True):
     loss = (pred - gt).abs()
+    return loss.mean() if mean else loss
+
+
+def l2_loss(pred, gt, mean: bool = True):
+    loss = (pred - gt) ** 2
     return loss.mean() if mean else loss
 
 
@@ -73,23 +81,53 @@ def isotropic_regularizer(scaling, condition_number: float, active=None):
 
 
 def compute_losses(pred_image, gt_image, scaling, active, loss_names: tuple,
-                   loss_weights: tuple, condition_number: float = 0.4):
-    """Weighted multi-loss (reference base.py:323-365) without LPIPS.
-    Returns (total, {name: loss})."""
+                   loss_weights: tuple, condition_number: float = 0.4,
+                   lpips_params=None, lpips_enabled: bool = True,
+                   lpips_downsample: int = 1, lpips_gt_feats=None):
+    """Weighted multi-loss (reference base.py:323-365). Returns (total,
+    {name: loss}).
+
+    lpips_loss: 0 when lpips_params is None (no weights resolved). Else
+    lpips_params, a VGG16-LPIPS params dict or its packed form, runs on
+    the layout conv chain, the port's one engine (make_train_step checks
+    loss.lpips_conv once), and lpips_enabled, a host bool, is the
+    reference's start_lpips_iter gate (base.py:333-341): when it is false
+    the term is an fp32 0 and no conv runs. lpips_downsample k > 1 average-pools pred and gt k x k first.
+    lpips_gt_feats, the gt's stage features from lpips.lpips_features
+    (built at the same lpips_downsample), skip the gt forward; exact, as
+    the gt branch carries no gradient.
+    """
     losses = {}
     for name in loss_names:
         if name == "rgb_loss":
             losses[name] = l1_loss(pred_image, gt_image)
+        elif name == "l2_loss":
+            losses[name] = l2_loss(pred_image, gt_image)
         elif name == "ssim_loss":
             losses[name] = 1.0 - ssim(pred_image, gt_image)
         elif name == "isotropic_reg":
             losses[name] = isotropic_regularizer(scaling, condition_number, active)
         elif name == "lpips_loss":
-            raise NotImplementedError(
-                "lpips_loss is not ported yet; drop it from loss.losses")
+            losses[name] = _lpips_term(
+                pred_image, gt_image, lpips_params, lpips_enabled,
+                lpips_downsample, lpips_gt_feats)
         else:
             raise ValueError(f"unknown loss {name}")
     total = torch.zeros((), dtype=pred_image.dtype, device=pred_image.device)
     for name, w in zip(loss_names, loss_weights):
         total = total + w * losses[name]
     return total, losses
+
+
+def _lpips_term(pred_image, gt_image, params, enabled: bool, downsample: int,
+                gt_feats):
+    dev = pred_image.device
+    if params is None:
+        return torch.zeros((), dtype=pred_image.dtype, device=dev)
+    if not enabled:
+        return torch.zeros((), dtype=torch.float32, device=dev)
+    pred = lpips.pool_avg(pred_image, downsample)
+    if gt_feats is not None:
+        return lpips.lpips_distance_cached(params, pred, list(gt_feats))
+    return lpips.lpips_distance(params, pred,
+                                lpips.pool_avg(gt_image, downsample))

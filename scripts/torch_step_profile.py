@@ -1,13 +1,16 @@
 """Where the time of the port's hand training step goes, on one NVIDIA card.
 
-    python3 scripts/torch_step_profile.py [--steps N]
+    python3 scripts/torch_step_profile.py [--steps N] [--lpips]
 
 Builds chip_smoke.py's bench scene (65,536 gaussians, 512x512, one view),
-then reports:
+with --lpips the step with the VGG16-LPIPS term on (chip_smoke.py's
+lpips slice: random-feature VGG16 seed 0, weight 0.1, the gt features
+cached), then reports:
 
   * each forward stage of one render timed alone (CUDA events, mean of 10
     calls, no autograd): LBS, SH colours, projection, binning, payload,
-    the composite kernel, image assembly with the losses;
+    the composite kernel, image assembly with the losses (with --lpips,
+    the LPIPS forward included);
   * the whole step (host clock around a synchronised step, median);
   * torch.profiler over N steps: device time by kernel name, the number
     of kernel launches per step, and the device's busy share (summed
@@ -36,6 +39,10 @@ from manus_tpu_torch.ops.rasterizer.api import calculate_colors_from_sh  # noqa:
 from manus_tpu_torch.ops.rasterizer.binning import bin_gaussians  # noqa: E402
 from manus_tpu_torch.ops.rasterizer.payload import build_payload  # noqa: E402
 from manus_tpu_torch.ops.rasterizer.projection import TILE, project_gaussians  # noqa: E402
+from manus_tpu_torch.train.lpips import (  # noqa: E402
+    pack_lpips_params,
+    random_lpips_params,
+)
 from manus_tpu_torch.train.workloads import (  # noqa: E402
     forward_gaussians,
     init_train_state,
@@ -45,7 +52,7 @@ from manus_tpu_torch.utils import losses as loss_mod  # noqa: E402
 from manus_tpu_torch.utils.camera import index_camera  # noqa: E402
 
 
-def stage_times(cfg, model, batch):
+def stage_times(cfg, model, batch, lpips_params=None):
     """ms of each forward stage of one view's render, timed alone."""
     cam = index_camera(batch["cameras"], 0)
     p, r, w, h = model.params, cfg.raster, cfg.dataset.width, cfg.dataset.height
@@ -83,9 +90,12 @@ def stage_times(cfg, model, batch):
 
         def image_and_losses():
             img, _ = composite.tiles_to_image(rgb, tfin, batch["bg"], ntx, nty, w, h)
+            feats = batch.get("lpips_gt_feats")
             return loss_mod.compute_losses(
                 img, batch["rgb"][0], get_scaling(p), model.active,
-                tuple(cfg.loss.losses), tuple(cfg.loss.loss_weight))
+                tuple(cfg.loss.losses), tuple(cfg.loss.loss_weight),
+                lpips_params=lpips_params,
+                lpips_gt_feats=None if feats is None else [f[0] for f in feats])
 
         for name, fn in (("lbs", lbs), ("sh_colours", colours),
                          ("projection", project), ("binning", binning),
@@ -98,6 +108,8 @@ def stage_times(cfg, model, batch):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--lpips", action="store_true",
+                    help="profile the step with the LPIPS term on")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
@@ -105,9 +117,15 @@ def main() -> int:
     dev = torch.device("cuda")
     card = chip_smoke.gpu_name_and_power()
     cfg, model, batch = chip_smoke.build_scene(dev)
-    stages = stage_times(cfg, model, batch)
+    params = None
+    if args.lpips:
+        params = pack_lpips_params(
+            random_lpips_params(chip_smoke.LPIPS_SEED, device=dev))
+        cfg, batch = chip_smoke.lpips_batch(cfg, batch, params)
+    stages = stage_times(cfg, model, batch, params)
 
-    step = make_train_step(cfg, extent=1.0, articulated=True)
+    step = make_train_step(cfg, extent=1.0, articulated=True,
+                           lpips_params=params)
     state = init_train_state(model)
     times = []
     for _ in range(10):
@@ -147,7 +165,7 @@ def main() -> int:
         print(f"{title}:")
         for name, ms, count in rows[:25]:
             print(f"  {ms:9.4f} ms/step  x{count:6.1f}  {name[:110]}")
-    result = dict(card=card, stage_ms=stages, step_ms_median=step_ms,
+    result = dict(card=card, lpips=args.lpips, stage_ms=stages, step_ms_median=step_ms,
                   profiled_wall_ms_per_step=per_step_wall,
                   device_busy_ms_per_step=busy_ms,
                   device_busy_share=busy_ms / per_step_wall,

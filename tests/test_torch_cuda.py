@@ -106,3 +106,147 @@ def test_cuda_wrappers_count_launches_and_check_inputs(dev):
     rgb, tf, _, n_walk = fwd(pay, cnt, cnt, 4, 4)
     assert rgb.abs().max().item() == 0 and tf.min().item() == 1.0
     assert n_walk.max().item() == 0
+
+
+# --- LPIPS kernels: the conv, dx and head kernels against their plain
+# versions on the card. bf16 outputs with fp32 sums in another order: a
+# value may round one ulp (at most 2^-7 of it) the other way, and a ReLU
+# output may be 0 on one side where the pre-activation is within fp32
+# rounding of 0 (1e-3 of the output's largest value).
+
+def _assert_bf16_close(got, want, what):
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    limit = 2.0 ** -7 * torch.maximum(got.abs(), want.abs()) \
+        + 1e-3 * want.abs().max()
+    assert bool((err <= limit).all()), f"{what}: max abs err {err.max().item()}"
+    assert (err > 0).float().mean().item() <= 0.01, what
+
+
+# (h, w, ci, co): Ci = 3 (padded to 16) and odd W+2, even W+2 in a
+# one-block layout, the 45x45 odd width, several row blocks, and a wide
+# layer with several CTAs along both rows and channels.
+CONV_CASES = [(13, 9, 3, 64), (16, 16, 64, 128), (45, 45, 16, 8),
+              (7, 4, 4, 4), (64, 64, 256, 512)]
+CONV_IDS = ["ci3_odd_w2", "one_block", "45x45", "multi_block", "wide"]
+
+
+def _conv_layer(dev, h, w, ci, co, seed):
+    from manus_tpu_torch.ops import conv
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(h, w, ci, generator=g)
+    wk = torch.randn(3, 3, ci, co, generator=g) * (2.0 / (9 * ci)) ** 0.5
+    b = torch.randn(co, generator=g) * 0.1
+    L = conv.StageLayout(h, w, max(ci, co, 128))
+    p = conv.pack_conv3x3(wk.to(dev), b.to(dev))
+    return conv, L, p, conv.build_layout(x.to(dev), L), g
+
+
+@pytest.mark.parametrize("h,w,ci,co", CONV_CASES, ids=CONV_IDS)
+def test_cuda_conv_and_dx_match_plain(dev, h, w, ci, co):
+    conv, L, p, xl, g = _conv_layer(dev, h, w, ci, co, h * 31 + w)
+    for relu in (False, True):
+        y = conv.conv3x3_layout_cuda(xl, p.w, p.b, relu, L)
+        _assert_bf16_close(y, conv.conv3x3_layout_torch(xl, p.w, p.b, relu, L),
+                           f"conv relu={relu}")
+        assert not y[~conv.valid_rows(L, dev)].any()
+        assert not y[:, co:].any()
+    # the dx of the ReLU'd layer (Co = 3 on the dx when ci == 3: its
+    # output has the layout's 16 channels, 13 of them zero)
+    gl = torch.randn(L.rows, p.co, generator=g).to(dev, torch.bfloat16)
+    dx = conv.conv3x3_layout_dx_cuda(gl, y, p.w_t, L)
+    want = conv.conv3x3_layout_torch(gl, p.w_t, None, False, L, mask_by=y)
+    assert dx.shape == (L.rows, p.ci)
+    _assert_bf16_close(dx, want, "dx")
+    assert not dx[:, ci:].any()
+
+
+def test_cuda_conv_autograd_and_image_conv(dev):
+    """The image conv (kernel 7) launches the conv kernel under its own
+    count, its backward is the dx kernel (the conv kernel with relu off),
+    and both match the CPU path."""
+    conv, L, p, xl, _ = _conv_layer(dev, 13, 9, 3, 16, 5)
+    x = torch.randn(13, 9, 3)
+    p_cpu = conv.ConvWeights(*(t.cpu() if torch.is_tensor(t) else t for t in p))
+    fns = (conv.conv3x3_image_cuda, conv.conv3x3_layout_cuda,
+           conv.conv3x3_layout_dx_cuda)
+    for relu, dx_launches in ((True, [1, 0, 1]), (False, [1, 1, 0])):
+        before = [f.launches for f in fns]
+        xg = x.to(dev).requires_grad_(True)
+        got = conv.conv3x3(xg, p, relu)
+        (gx,) = torch.autograd.grad(got.float().sum(), [xg])
+        assert [f.launches - n for f, n in zip(fns, before)] == dx_launches
+        xc = x.clone().requires_grad_(True)
+        want = conv.conv3x3(xc, p_cpu, relu)
+        (gc,) = torch.autograd.grad(want.float().sum(), [xc])
+        _assert_bf16_close(got.detach().cpu(), want.detach(), "image conv")
+        _assert_bf16_close(gx.cpu(), gc, "image conv dx")
+
+
+@pytest.mark.parametrize("rows,c", [(4112 * 3, 64), (528, 512), (40, 16)])
+def test_cuda_head_matches_plain(dev, rows, c):
+    """The head kernels with all-zero rows (the zero-norm guard): the
+    forward within 1e-5 relative (fp32 sums in another order), the
+    gradients by the bf16 rule."""
+    from manus_tpu_torch.ops import conv
+
+    g = torch.Generator(device="cpu").manual_seed(rows + c)
+    a = torch.randn(rows, c, generator=g)
+    b = torch.randn(rows, c, generator=g)
+    a[::7] = 0
+    b[::7] = 0
+    a, b = a.to(dev, torch.bfloat16), b.to(dev, torch.bfloat16)
+    lin = (torch.rand(c, generator=g) / c / rows).to(dev)
+    got = conv.head_fwd_cuda(a, b, lin).item()
+    want = conv.head_fwd_torch(a, b, lin).item()
+    assert abs(got - want) <= 1e-5 * abs(want)
+    assert conv.head_fwd_cuda(a, b, lin).item() == got  # no atomics
+    ct = torch.tensor(1.3, device=dev)
+    da, db = conv.head_bwd_cuda(a, b, lin, ct)
+    da_ref, db_ref = conv.head_bwd_torch(a, b, lin * ct)
+    _assert_bf16_close(da, da_ref, "da")
+    _assert_bf16_close(db, db_ref, "db")
+    assert not da[::7].any() and not db[::7].any()
+
+
+def test_cuda_lpips_distance_matches_cpu(dev):
+    """lpips_distance and its image gradient at 64x64 through the kernels
+    against the plain chain on the CPU, and the launch counts of one
+    forward and backward."""
+    from manus_tpu_torch.ops import conv
+    from manus_tpu_torch.train import lpips
+
+    params = lpips.random_lpips_params(0, device="cpu")
+    g = torch.Generator(device="cpu").manual_seed(0)
+    a, b = torch.rand(64, 64, 3, generator=g), torch.rand(64, 64, 3, generator=g)
+
+    def run(p, img, ref):
+        x = img.clone().requires_grad_(True)
+        d = lpips.lpips_distance(p, x, ref)
+        return d.item(), torch.autograd.grad(d, [x])[0].cpu().reshape(-1)
+
+    fns = (conv.conv3x3_layout_cuda, conv.conv3x3_layout_dx_cuda,
+           conv.head_fwd_cuda, conv.head_bwd_cuda)
+    before = [f.launches for f in fns]
+    d_k, g_k = run({k: v.to(dev) for k, v in params.items()}, a.to(dev),
+                   b.to(dev))
+    assert [f.launches - n for f, n in zip(fns, before)] == [26, 13, 5, 5]
+    d_p, g_p = run(params, a, b)
+    assert abs(d_k - d_p) <= 1e-3 * d_p
+    assert (g_k @ g_p / (g_k.norm() * g_p.norm())).item() >= 0.999
+
+
+def test_lpips_wrappers_check_inputs(dev):
+    from manus_tpu_torch.ops import conv
+
+    _, L, p, xl, _ = _conv_layer(dev, 16, 16, 16, 32, 0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv.conv3x3_layout_cuda(xl.float(), p.w, p.b, True, L)
+    with pytest.raises(ValueError, match="CUDA"):
+        conv.conv3x3_layout_cuda(xl.cpu(), p.w, p.b, True, L)
+    with pytest.raises(ValueError, match="do not fit"):
+        conv.conv3x3_layout_cuda(xl, p.w_t, p.b, True, L)
+    a = torch.zeros(8, 600, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="512"):
+        conv.head_fwd_cuda(a, a, torch.zeros(600, device=dev))
