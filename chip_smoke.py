@@ -26,7 +26,11 @@ Phases, each of which exits non-zero on failure:
      random_lpips_params(0, "vgg")) on a perturbed copy of the scene's
      512x512 gt image and on the gt: each of the 13 conv layers' kernel
      against its plain version on the same input, the dx kernel under a
-     random bf16 cotangent, the head kernels at each of the 5 stages,
+     random bf16 cotangent (per layer: the plan conv_plan chose, its
+     working CTAs and waves of the card's SMs, device time from a CUDA
+     graph of launches, TFLOP/s, the host time of one launch call, and,
+     for a split-K plan, that two launches give equal bits), the head
+     kernels at each of the 5 stages,
      the image conv (kernel 7) at one layer's shape, and lpips_distance
      with its image gradient through the kernels against the plain chain
      (run on the CPU); per-layer times, plain times, library times and
@@ -191,6 +195,33 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_graph_ms(fn, reps: int) -> float:
+    """Mean device ms of fn() over reps launches replayed from a CUDA
+    graph: the host's cost of a launch call (tens of microseconds, more
+    than a small conv layer takes) is not in the time."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    return cuda_ms(graph.replay, 3) / reps
+
+
+def host_us(fn, reps: int = 100) -> float:
+    """Host microseconds of one fn() call, the card's queue drained before
+    and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
 
 
 def build_scene(dev):
@@ -467,7 +498,8 @@ def conv_library_ms(x_hwc, w_hwio, b, reps=20):
     w = w_hwio.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
     b = b.to(torch.bfloat16)
-    return cuda_ms(lambda: torch.nn.functional.conv2d(x, w, b, padding=1), reps)
+    return cuda_graph_ms(
+        lambda: torch.nn.functional.conv2d(x, w, b, padding=1), reps)
 
 
 def dx_library_ms(g_hwc, w_hwio, reps=20):
@@ -477,8 +509,8 @@ def dx_library_ms(g_hwc, w_hwio, reps=20):
     w = w_hwio.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
     size = (1, w.shape[1], g.shape[2], g.shape[3])
-    return cuda_ms(lambda: torch.nn.grad.conv2d_input(size, w, g, padding=1),
-                   reps)
+    return cuda_graph_ms(
+        lambda: torch.nn.grad.conv2d_input(size, w, g, padding=1), reps)
 
 
 class Sweep:
@@ -554,6 +586,21 @@ def lpips_kernel_phase(batch, dev):
     return params, results
 
 
+def plan_line(form, plan, flops, ms, launch):
+    """The plan of one layer and form, its rate and its host cost; a
+    split-K plan must give the same bits twice."""
+    line = (f"  plan {form}: tile {plan.bm}x{plan.bn}, K-chunk {plan.kc}, "
+            f"split {plan.split_k}, working CTAs {plan.grid} "
+            f"({plan.waves:.2f} waves of {conv_mod.SM_COUNT}), "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, host "
+            f"{host_us(launch):.1f} us/launch")
+    if plan.split_k > 1:
+        same = torch.equal(launch(), launch())
+        line += f", two launches equal bits: {same}"
+        check(same, f"{form}: two launches of a split-K plan differ")
+    print(line)
+
+
 def conv_layer_checks(sweeps, params, si, li, xl, y, p, L, gen):
     """One layer: the conv kernel and the dx kernel against their plain
     versions, with times and bounds. The bounds count the bytes of the
@@ -567,13 +614,16 @@ def conv_layer_checks(sweeps, params, si, li, xl, y, p, L, gen):
     w_bytes = 2 * 9 * ci * co
     y_ref = conv_mod.conv3x3_layout_torch(xl, p.w, p.b, True, L)
     err, share = bf16_check(y, y_ref, f"{layer} conv")
-    ms = cuda_ms(lambda: conv_mod.conv3x3_layout_cuda(xl, p.w, p.b, True, L), 20)
+    launch = lambda: conv_mod.conv3x3_layout_cuda(xl, p.w, p.b, True, L)  # noqa: E731
+    ms = cuda_graph_ms(launch, 20)
     plain = cuda_ms(lambda: conv_mod.conv3x3_layout_torch(xl, p.w, p.b, True, L), 3)
     nbytes = 2 * px * (ci + co) + w_bytes + 4 * co
     lib = conv_library_ms(conv_mod.unlayout(xl, L)[..., :ci], w_hwio,
                           params[f"{layer}_b"])
     sweeps["conv3x3_layout"].add(layer, err, share, ms, plain,
                                  bound_ms(nbytes, flops, BF16_FLOP_PER_S), lib)
+    plan_line(f"{layer} conv", conv_mod.conv_plan(L, p.ci, p.co), flops, ms,
+              launch)
 
     g = torch.randn(L.rows, p.co, device=y.device, generator=gen).to(
         torch.bfloat16)
@@ -581,7 +631,8 @@ def conv_layer_checks(sweeps, params, si, li, xl, y, p, L, gen):
     dx_ref = conv_mod.conv3x3_layout_torch(g, p.w_t, None, False, L,
                                            mask_by=y)
     err, share = bf16_check(dx, dx_ref, f"{layer} dx")
-    ms = cuda_ms(lambda: conv_mod.conv3x3_layout_dx_cuda(g, y, p.w_t, L), 20)
+    launch = lambda: conv_mod.conv3x3_layout_dx_cuda(g, y, p.w_t, L)  # noqa: E731
+    ms = cuda_graph_ms(launch, 20)
     plain = cuda_ms(lambda: conv_mod.conv3x3_layout_torch(
         g, p.w_t, None, False, L, mask_by=y), 3)
     nbytes = 2 * px * (2 * co + ci) + w_bytes
@@ -590,6 +641,8 @@ def conv_layer_checks(sweeps, params, si, li, xl, y, p, L, gen):
     sweeps["conv3x3_layout_dx"].add(layer, err, share, ms, plain,
                                     bound_ms(nbytes, flops, BF16_FLOP_PER_S),
                                     lib)
+    plan_line(f"{layer} dx", conv_mod.conv_plan(L, p.co, p.ci), flops,
+              ms, launch)
 
 
 def image_conv_check(sweep, params, xl, p, L):
@@ -602,7 +655,7 @@ def image_conv_check(sweep, params, xl, p, L):
     y_ref = conv_mod.unlayout(conv_mod.conv3x3_layout_torch(
         xi, p.w, p.b, True, Li), Li)[..., : p.n_out]
     err, share = bf16_check(y, y_ref, "conv3x3 image")
-    ms = cuda_ms(lambda: conv_mod.conv3x3_raw(x, p, True), 20)
+    ms = cuda_graph_ms(lambda: conv_mod.conv3x3_raw(x, p, True), 20)
     plain = cuda_ms(lambda: conv_mod.unlayout(conv_mod.conv3x3_layout_torch(
         conv_mod.build_layout(x, Li), p.w, p.b, True, Li), Li), 3)
     h, w, ci = x.shape
@@ -699,10 +752,16 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = cuda_build.build(["composite", "conv3x3", "lpips_head"])
     print(f"build: {time.perf_counter() - t0:.1f} s into {cuda_build.BUILD_DIR}")
+    spills = 0
     for log in logs.values():
         for line in log.splitlines():
             if "registers" in line or "Compiling entry" in line:
                 print("  " + line.strip())
+            if "spill" in line and "0 bytes spill stores, 0 bytes spill " \
+                    "loads" not in line:
+                print("  " + line.strip())
+                spills += 1
+    check(spills == 0, f"ptxas reports register spills in {spills} kernels")
 
     t0 = time.perf_counter()
     cfg, model, batch = build_scene(dev)

@@ -16,7 +16,9 @@ PyTorch version; a wrapper launches the kernel for a CUDA tensor and runs
 the plain version for a CPU tensor:
 
   * `conv3x3_layout_raw`: bf16 conv on the layout with fp32 accumulation,
-    bias, optional ReLU and the zeroing of the non-pixel rows; bf16 out;
+    bias, optional ReLU and the zeroing of the non-pixel rows; bf16 out.
+    The kernel's tile, K-chunk and split of K come from `conv_plan`, a
+    plan per layer shape made here on the host;
   * `conv3x3_layout_dx_raw`: the dx of a ReLU'd layer: the upstream
     gradient masked by y > 0 on load, convolved with the flipped,
     channel-transposed weights;
@@ -37,6 +39,7 @@ compare row for row with it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -231,6 +234,50 @@ def conv3x3_layout_torch(xl, w, b, relu: bool, L: StageLayout,
     return y.to(torch.bfloat16)
 
 
+def conv3x3_layout_plan_torch(xl, w, b, relu: bool, L: StageLayout,
+                              plan: "ConvPlan", mask_by=None):
+    """The conv in the order csrc/conv3x3.cu computes it under `plan`, in
+    plain PyTorch: tile by tile from L.m_blk on, each split-K slice its
+    own fp32 sum over its chunks (a chunk is plan.kc channels of the three
+    taps of one dy), the slices added in index order, then bias, ReLU, the
+    pixel mask and one rounding to bf16; every other row zero. It shows on
+    the CPU that a plan's tiles and chunks cover the conv exactly once;
+    conv3x3_layout_torch stays the version every kernel is held against."""
+    ci, co = xl.shape[1], w.shape[1]
+    w2 = L.w + 2
+    x = xl.float()
+    if mask_by is not None:
+        x = torch.where(mask_by > 0, x, 0.0)
+    # rows before 0 and past the end read as zeros, as the TMA box fills
+    x = F.pad(x, (0, 0, w2 + 1, w2 + 1 + plan.bm))
+    wf = w.float()
+    bias = torch.zeros(co, device=xl.device) if b is None else b.float()
+    per_dy = ci // plan.kc
+    per_split = plan.chunks // plan.split_k
+    keep = valid_rows(L, xl.device)
+    y = torch.zeros(L.rows, co, dtype=torch.float32, device=xl.device)
+    for r0, r1 in plan_row_tiles(L, plan):
+        for n0 in range(0, co, plan.bn):
+            total = None
+            for z in range(plan.split_k):
+                part = torch.zeros(plan.bm, plan.bn, device=xl.device)
+                for c in range(z * per_split, (z + 1) * per_split):
+                    dy, cc = divmod(c, per_dy)
+                    for dx in range(3):
+                        top = r0 + (dy - 1) * w2 + dx - 1 + w2 + 1
+                        k0 = ((3 * dy + dx) * per_dy + cc) * plan.kc
+                        part = part + (
+                            x[top: top + plan.bm,
+                              cc * plan.kc: (cc + 1) * plan.kc]
+                            @ wf[k0: k0 + plan.kc, n0: n0 + plan.bn])
+                total = part if total is None else total + part
+            out = bias[n0: n0 + plan.bn] + total
+            if relu:
+                out = torch.clamp_min(out, 0.0)
+            y[r0:r1, n0: n0 + plan.bn] = out[: r1 - r0]
+    return torch.where(keep[:, None], y, 0.0).to(torch.bfloat16)
+
+
 def head_fwd_torch(a, b, lin_eff):
     """Plain version of the head forward: the fp32 sum over rows and
     channels of (unit(a) - unit(b))^2 * lin_eff."""
@@ -259,12 +306,100 @@ def head_bwd_torch(a, b, lin_scaled):
 
 
 # ---------------------------------------------------------------------------
+# The conv kernel's plan for one layer shape.
+
+SM_COUNT = 132  # streaming multiprocessors of an H100
+PLAN_BM = 128   # output rows per CTA (two warpgroups of 64)
+PLAN_BN = (256, 128, 64, 16)  # channel tiles the kernel is built for
+# Fewest K-chunks a split-K slice may hold.
+MIN_CHUNKS_PER_SPLIT = 2
+# Share of the card's SMs that the tiles of a plan without a split should
+# fill before a wider channel tile is preferred to more tiles.
+WAVE_FILL = 0.9
+
+
+class ConvPlan(NamedTuple):
+    """How csrc/conv3x3.cu runs one layer: a CTA computes bm rows x bn
+    channels, walking K in chunks of kc channels of the three taps of one
+    dy; split_k CTAs share a tile's chunks. The working tiles are the
+    m_tiles row tiles from L.m_blk on (where the pixel rows are) times the
+    n_tiles channel tiles; grid is the number of working CTAs and
+    workspace the fp32 elements of the split-K partial sums (0 without a
+    split)."""
+
+    bm: int
+    bn: int
+    kc: int
+    split_k: int
+    m_tiles: int
+    n_tiles: int
+    chunks: int
+    grid: int
+    workspace: int
+
+    @property
+    def waves(self) -> float:
+        """Working CTAs over the card's SMs."""
+        return self.grid / SM_COUNT
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(L: StageLayout, ci: int, co: int) -> ConvPlan:
+    """The plan of a 3x3 conv from ci to co channels (multiples of 16) on
+    layout L, for the conv and the dx form alike.
+
+    K-chunks are 64 channels wide, or 16 where ci is no multiple of 64
+    (the narrow path: the image's 3 channels padded to 16). The rules for
+    the channel tile and the split come from per-plan times on an H100
+    (scripts/torch_conv_tune.py). A wide tile re-reads A less often, so
+    the tile is the widest that divides co and whose tiles still fill
+    WAVE_FILL of the CTAs the card holds at once (one an SM, two for a
+    tile of 64 channels or fewer), else 128. Where the tiles fill no more than half
+    the SMs, K is split by the largest divisor of the chunks that keeps
+    the working CTAs within one wave (one CTA an SM was faster than two
+    waves of shorter CTAs, whose partial sums cross memory twice)."""
+    if ci % CHANNEL_ALIGN or co % CHANNEL_ALIGN or ci <= 0 or co <= 0:
+        raise ValueError(f"conv channels must be multiples of "
+                         f"{CHANNEL_ALIGN}, got {ci} -> {co}")
+    kc = 64 if ci % 64 == 0 else 16
+    m_tiles = -(-L.n_valid // PLAN_BM)
+    # the narrow K path is built for tiles up to 64 channels
+    widths = [n for n in PLAN_BN if co % n == 0 and (kc == 64 or n <= 64)]
+    widths = [n for n in widths if n >= 64] or widths  # 16 as a last resort
+    # a tile of 64 channels or fewer runs two CTAs an SM
+    full = [n for n in widths if m_tiles * (co // n)
+            >= WAVE_FILL * SM_COUNT * (2 if n <= 64 else 1)]
+    bn = full[0] if full else min(widths[0], 128)
+    n_tiles = co // bn
+    chunks = 3 * ci // kc
+    tiles = m_tiles * n_tiles
+    split = 1
+    if 2 * tiles <= SM_COUNT:
+        split = max(s for s in range(1, chunks + 1) if chunks % s == 0
+                    and tiles * s <= SM_COUNT
+                    and (s == 1 or chunks // s >= MIN_CHUNKS_PER_SPLIT))
+    workspace = split * m_tiles * PLAN_BM * co if split > 1 else 0
+    return ConvPlan(PLAN_BM, bn, kc, split, m_tiles, n_tiles, chunks,
+                    tiles * split, workspace)
+
+
+def plan_row_tiles(L: StageLayout, plan: ConvPlan) -> list:
+    """The [start, stop) layout rows of the plan's working row tiles: from
+    L.m_blk on, cut at the layout's end. Every other row holds no pixel
+    and is zero-filled."""
+    return [(r0, min(r0 + plan.bm, L.rows))
+            for r0 in range(L.m_blk, L.m_blk + plan.m_tiles * plan.bm,
+                            plan.bm)]
+
+
+# ---------------------------------------------------------------------------
 # CUDA wrappers.
 
 _P, _I32 = ctypes.c_void_p, ctypes.c_int
 _CONV_SIGNATURES = {
     "conv3x3_layout": (
-        [_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _P],
+        [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+         _I32, _I32, _I32, _P],
         ctypes.c_int),
     "conv3x3_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
@@ -286,27 +421,36 @@ def _check(x, name, dtype, shape, device):
             f"{x.device}")
 
 
-def _launch_conv(xl, mask_by, w, b, relu: bool, L: StageLayout):
+def _launch_conv(xl, mask_by, w, b, relu: bool, L: StageLayout,
+                 plan: ConvPlan = None):
+    """Launch the conv kernel (the dx form with mask_by) under `plan`
+    (default: conv_plan's; a tuning script may pass its own)."""
     if not xl.is_cuda:
         raise ValueError("the CUDA conv needs a CUDA layout tensor")
     dev = xl.device
     ci, co = xl.shape[1], w.shape[1]
-    if ci % 8 or co % 8 or w.shape[0] != 9 * ci:
+    if ci % CHANNEL_ALIGN or co % CHANNEL_ALIGN or w.shape[0] != 9 * ci:
         raise ValueError(f"conv weights {tuple(w.shape)} do not fit a "
-                         f"layout of {ci} channels (multiples of 8)")
+                         f"layout of {ci} channels (multiples of "
+                         f"{CHANNEL_ALIGN})")
     _check(xl, "layout", torch.bfloat16, (L.rows, ci), dev)
     _check(w, "weights", torch.bfloat16, (9 * ci, co), dev)
     if mask_by is not None:
         _check(mask_by, "mask", torch.bfloat16, (L.rows, ci), dev)
     if b is not None:
         _check(b, "bias", torch.float32, (co,), dev)
+    if plan is None:
+        plan = conv_plan(L, ci, co)
     lib = cuda_build.load("conv3x3", _CONV_SIGNATURES)
     y = torch.empty(L.rows, co, dtype=torch.bfloat16, device=dev)
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=dev) \
+        if plan.split_k > 1 else None
     rc = lib.conv3x3_layout(
         xl.data_ptr(), None if mask_by is None else mask_by.data_ptr(),
         w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
-        L.rows, ci, co, L.w, L.m_blk, L.n_valid, int(relu),
-        torch.cuda.current_stream(dev).cuda_stream)
+        None if ws is None else ws.data_ptr(),
+        L.rows, ci, co, L.w, L.m_blk, L.n_valid, int(relu), plan.kc,
+        plan.bn, plan.split_k, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3_layout launch failed: "
                            f"{lib.conv3x3_error_string(rc).decode()} ({rc})")

@@ -21,7 +21,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -125,10 +125,15 @@ def _assert_bf16_close(got, want, what):
 
 # (h, w, ci, co): Ci = 3 (padded to 16) and odd W+2, even W+2 in a
 # one-block layout, the 45x45 odd width, several row blocks, and a wide
-# layer with several CTAs along both rows and channels.
+# layer with several CTAs along both rows and channels; the VGG16's 32x32
+# stage, whose plan splits K in both forms; 16 input channels with a K of
+# three chunks, no longer than the kernel's ring; and a row count that is
+# no multiple of the 128-row tile under 256-channel tiles.
 CONV_CASES = [(13, 9, 3, 64), (16, 16, 64, 128), (45, 45, 16, 8),
-              (7, 4, 4, 4), (64, 64, 256, 512)]
-CONV_IDS = ["ci3_odd_w2", "one_block", "45x45", "multi_block", "wide"]
+              (7, 4, 4, 4), (64, 64, 256, 512), (32, 32, 512, 512),
+              (20, 12, 16, 32), (40, 40, 128, 256)]
+CONV_IDS = ["ci3_odd_w2", "one_block", "45x45", "multi_block", "wide",
+            "stage4_split_k", "short_k", "ragged_rows"]
 
 
 def _conv_layer(dev, h, w, ci, co, seed):
@@ -160,6 +165,20 @@ def test_cuda_conv_and_dx_match_plain(dev, h, w, ci, co):
     assert dx.shape == (L.rows, p.ci)
     _assert_bf16_close(dx, want, "dx")
     assert not dx[:, ci:].any()
+
+
+def test_cuda_split_k_gives_equal_bits(dev):
+    """Two launches of a split-K plan give the same bits: the slices are
+    summed in index order, with no atomics."""
+    conv, L, p, xl, g = _conv_layer(dev, 32, 32, 512, 512, 7)
+    assert conv.conv_plan(L, p.ci, p.co).split_k > 1
+    assert conv.conv_plan(L, p.co, p.ci).split_k > 1
+    y = conv.conv3x3_layout_cuda(xl, p.w, p.b, True, L)
+    assert torch.equal(y, conv.conv3x3_layout_cuda(xl, p.w, p.b, True, L))
+    gl = torch.randn(L.rows, p.co, generator=g).to(dev, torch.bfloat16)
+    dx = conv.conv3x3_layout_dx_cuda(gl, y, p.w_t, L)
+    assert torch.equal(dx, conv.conv3x3_layout_dx_cuda(gl, y, p.w_t, L))
+    assert dx.abs().max().item() > 0
 
 
 def test_cuda_conv_autograd_and_image_conv(dev):
