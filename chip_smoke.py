@@ -14,10 +14,14 @@ Phases, each of which exits non-zero on failure:
      is perturbed;
   3. oracle: a 64x64 render of a small cut of the scene through the CUDA
      kernels against the dense per-pixel oracle;
-  4. kernels: on the scene's real payload, each CUDA kernel against its
+  4. kernels: on the scene's real payload and on a spread one (the same
+     gaussians scattered over the image from a fixed seed, so that every
+     tile holds about a hundred pairs), each composite kernel against its
      plain PyTorch version (the forward on rgb and T_final, the backward
      on d_payload under a random image cotangent and a non-zero
-     background), and their times;
+     background), two launches of each against each other (equal bits),
+     the (tile, chunk) items the payload gives, the chunk size and the
+     CTAs an SM holds, and both kernels' times from CUDA-graph replays;
   5. slice: STEPS training steps through make_train_step under bench.py's
      raster configuration, without LPIPS; the loss must be finite and
      fall, and each composite kernel's launch count over the run must
@@ -286,8 +290,32 @@ def build_scene(dev):
     return cfg, perturb_model(model), batch
 
 
-def scene_payload(cfg, model, batch, dev):
-    """The payload and tile segments the first view's render builds."""
+def spread_projection(proj, seed=0):
+    """The projected gaussians with their centres scattered uniformly over
+    the image from a fixed seed (conics, radii, depths, colours and
+    opacities kept), and the tile rectangles that project_gaussians would
+    give them there: most tiles then hold tens to hundreds of pairs."""
+    dev = proj.means2d.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    size = torch.tensor([WIDTH, HEIGHT], device=dev, dtype=torch.float32)
+    m2d = torch.rand(proj.means2d.shape, device=dev, generator=gen) * size - 0.5
+    m2d = torch.where(proj.visible[:, None], m2d, torch.zeros_like(m2d))
+    r = proj.radius.to(torch.float32)
+
+    def tile_index(v, limit):
+        return torch.clamp(v.to(torch.int32), 0, limit)
+
+    rect = torch.stack([
+        tile_index((m2d[:, 0] - r) / TILE, WIDTH // TILE),
+        tile_index((m2d[:, 1] - r) / TILE, HEIGHT // TILE),
+        tile_index((m2d[:, 0] + r + TILE - 1) / TILE, WIDTH // TILE),
+        tile_index((m2d[:, 1] + r + TILE - 1) / TILE, HEIGHT // TILE)], dim=-1)
+    return proj._replace(means2d=m2d, tile_rect=rect)
+
+
+def scene_payload(cfg, model, batch, dev, spread=False):
+    """The payload and tile segments the first view's render builds; with
+    `spread`, those of the same gaussians scattered over the image."""
     cam = index_camera(batch["cameras"], 0)
     p = model.params
     with torch.no_grad():
@@ -296,6 +324,8 @@ def scene_payload(cfg, model, batch, dev):
         colors = calculate_colors_from_sh(posed, get_features(p), p.xyz, cam,
                                           3, tf)
         proj = project_gaussians(posed, cov, cam, active=model.active)
+        if spread:
+            proj = spread_projection(proj)
         r = cfg.raster
         bins = bin_gaussians(proj, WIDTH // TILE, HEIGHT // TILE, r.tg_max,
                              r.lane_align, r.pair_budget_factor,
@@ -329,25 +359,54 @@ def oracle_phase(model, batch, dev):
     check(err <= ORACLE_ATOL, f"cuda render differs from the oracle by {err}")
 
 
-def kernel_phase(pay, bins, dev):
-    """Each kernel against its plain version on the scene's payload."""
+def composite_graph_ms(pay, bins, dev, reps=20):
+    """Device ms per launch of the composite forward and backward wrappers
+    on one payload, from CUDA-graph replays, with the count of pairs in
+    segments and the deepest tile."""
+    ntx, nty = WIDTH // TILE, HEIGHT // TILE
+    offs, cnts = bins.tile_offsets, bins.tile_counts
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d_rgb = torch.rand(ntx * nty, 3, 256, device=dev, generator=gen)
+    d_tf = torch.rand(ntx * nty, 256, device=dev, generator=gen)
+    saved = composite.composite_fwd_cuda(pay, offs, cnts, ntx, nty)[1:]
+    fwd_ms = cuda_graph_ms(lambda: composite.composite_fwd_cuda(
+        pay, offs, cnts, ntx, nty), reps)
+    bwd_ms = cuda_graph_ms(lambda: composite.composite_bwd_cuda(
+        pay, offs, cnts, ntx, nty, d_rgb, d_tf, *saved), reps)
+    with_pairs = cnts[cnts > 0]
+    return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, pairs=int(cnts.sum()),
+                tiles_with_pairs=with_pairs.numel(),
+                median_tile=int(with_pairs.median()) if with_pairs.numel() else 0,
+                deepest_tile=int(cnts.max()))
+
+
+def composite_check(pay, bins, dev, tag):
+    """Both composite kernels against their plain version on one payload,
+    and two launches of each against each other (equal bits). Returns the
+    max abs errors and what the forward gave."""
     ntx, nty = WIDTH // TILE, HEIGHT // TILE
     offs, cnts = bins.tile_offsets, bins.tile_counts
     n_tiles = ntx * nty
-    rgb_k, tf_k, log_t, n_walk = composite.composite_fwd_cuda(
-        pay, offs, cnts, ntx, nty)
+    fwd = composite.composite_fwd_cuda(pay, offs, cnts, ntx, nty)
+    rgb_k, tf_k, log_t, n_walk, state = fwd
     with torch.no_grad():
         rgb_p, tf_p = composite.composite_tiles_torch(pay, offs, cnts, ntx, nty)
     err_px = torch.maximum((rgb_k - rgb_p).abs().amax(1), (tf_k - tf_p).abs())
     fwd_err = err_px.max().item()
     flips = int((err_px > FWD_ATOL).sum())
-    walked = int(n_walk.sum())
-    print(f"composite_fwd: P={pay.shape[1]} pairs in segments="
-          f"{int(cnts.sum())} walked pixel-pairs={walked} max abs err "
+    items = int(state.item_start[-1])
+    print(f"composite_fwd {tag}: P={pay.shape[1]} pairs in segments="
+          f"{int(cnts.sum())} in {int((cnts > 0).sum())} tiles (deepest "
+          f"{int(cnts.max())}), {items} items of at most "
+          f"{composite.chunk_size()} pairs (grid {state.item_tile.shape[0]}), "
+          f"walked pixel-pairs={int(n_walk.sum())} max abs err "
           f"{fwd_err:.3e}; pixels beyond {FWD_ATOL}: {flips}")
     check(flips <= FLIP_SHARE * n_tiles * 256 and fwd_err <= FLIP_ATOL,
-          f"forward kernel disagrees: max err {fwd_err}, {flips} pixels")
-    check((tf_k < 0.5).any().item(), "the scene covers no pixel")
+          f"forward kernel disagrees ({tag}): max err {fwd_err}, {flips} pixels")
+    check((tf_k < 0.5).any().item(), f"the {tag} scene covers no pixel")
+    again = composite.composite_fwd_cuda(pay, offs, cnts, ntx, nty)
+    check(all(torch.equal(a, b) for a, b in zip(fwd[:4], again[:4])),
+          f"two launches of the forward differ ({tag})")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     r_img = torch.rand(HEIGHT, WIDTH, 3, device=dev, generator=gen) - 0.5
@@ -366,20 +425,45 @@ def kernel_phase(pay, bins, dev):
         x, offs, cnts, ntx, nty))
     bwd_err = (dk - dp).abs().max().item()
     norm = ((dk - dp).abs().amax(1) / dp.abs().amax(1).clamp(min=1e-30))[:NUM_LIVE]
-    print(f"composite_bwd: max abs err {bwd_err:.3e}; per-field normalised "
-          f"{[float(f'{v:.2e}') for v in norm.tolist()]}")
+    print(f"composite_bwd {tag}: max abs err {bwd_err:.3e}; per-field "
+          f"normalised {[float(f'{v:.2e}') for v in norm.tolist()]}")
     check(bool((norm <= BWD_NORM_TOL).all()),
-          f"backward kernel disagrees: normalised errors {norm.tolist()}")
-
-    # times at the bench shape
-    walk_max = n_walk.amax(1).long()
-    pairs = int(walk_max.sum())
+          f"backward kernel disagrees ({tag}): normalised errors {norm.tolist()}")
     d_rgb = torch.rand(n_tiles, 3, 256, device=dev, generator=gen)
     d_tf = torch.rand(n_tiles, 256, device=dev, generator=gen)
-    fwd_ms = cuda_ms(lambda: composite.composite_fwd_cuda(
-        pay, offs, cnts, ntx, nty), 50)
-    bwd_ms = cuda_ms(lambda: composite.composite_bwd_cuda(
-        pay, offs, cnts, ntx, nty, d_rgb, d_tf, tf_k, log_t, n_walk), 50)
+    d1, d2 = (composite.composite_bwd_cuda(
+        pay, offs, cnts, ntx, nty, d_rgb, d_tf, *fwd[1:]) for _ in range(2))
+    check(torch.equal(d1, d2) and bool(d1.abs().max() > 0),
+          f"two launches of the backward differ ({tag})")
+    print(f"composite {tag}: two launches of each kernel gave equal bits")
+    return fwd_err, bwd_err, n_walk, d_rgb, d_tf
+
+
+def kernel_phase(pay, bins, spread_pay, spread_bins, dev):
+    """Each composite kernel against its plain version on the scene's
+    payload and on the spread one, and their times from CUDA-graph
+    replays (one launch takes the card no longer than the host needs to
+    make the call)."""
+    ntx, nty = WIDTH // TILE, HEIGHT // TILE
+    offs, cnts = bins.tile_offsets, bins.tile_counts
+    n_tiles = ntx * nty
+    occ = composite.kernel_occupancy()
+    print(f"composite: CTAs of 256 threads an SM: {occ}")
+    composite_check(spread_pay, spread_bins, dev, "spread")
+    sp = composite_graph_ms(spread_pay, spread_bins, dev)
+    print(f"times (ms, spread payload: {sp['pairs']} pairs in "
+          f"{sp['tiles_with_pairs']} tiles, median tile {sp['median_tile']}, "
+          f"deepest {sp['deepest_tile']}): fwd kernel {sp['fwd_ms']:.4f} bwd "
+          f"kernel {sp['bwd_ms']:.4f}")
+    fwd_err, bwd_err, n_walk, d_rgb, d_tf = composite_check(pay, bins, dev,
+                                                            "bench")
+
+    # times at the bench shape
+    walked = int(n_walk.sum())
+    walk_max = n_walk.amax(1).long()
+    pairs = int(walk_max.sum())
+    times = composite_graph_ms(pay, bins, dev)
+    fwd_ms, bwd_ms = times["fwd_ms"], times["bwd_ms"]
     with torch.no_grad():
         fwd_plain_ms = cuda_ms(lambda: composite.composite_tiles_torch(
             pay, offs, cnts, ntx, nty), 3)
@@ -395,7 +479,8 @@ def kernel_phase(pay, bins, dev):
 
     fwd_bound, fwd_by = bound(fwd_bytes, FWD_FLOP_PER_PAIR * walked)
     bwd_bound, bwd_by = bound(bwd_bytes, BWD_FLOP_PER_PAIR * walked)
-    print(f"times (ms, bench shape): fwd kernel {fwd_ms:.4f} plain "
+    print(f"times (ms, bench shape, CUDA-graph replays): fwd kernel "
+          f"{fwd_ms:.4f} plain "
           f"{fwd_plain_ms:.3f} bound {fwd_bound:.4f} ({fwd_by}); bwd kernel "
           f"{bwd_ms:.4f} plain {bwd_plain_ms:.3f} bound {bwd_bound:.4f} "
           f"({bwd_by}); tiles walked {int((walk_max > 0).sum())}/{n_tiles}, "
@@ -771,8 +856,9 @@ def main() -> int:
 
     oracle_phase(model, batch, dev)
     pay, bins = scene_payload(cfg, model, batch, dev)
-    results = kernel_phase(pay, bins, dev)
-    del pay, bins
+    spread = scene_payload(cfg, model, batch, dev, spread=True)
+    results = kernel_phase(pay, bins, *spread, dev)
+    del pay, bins, spread
     launches, plain_step_ms = slice_phase(cfg, init_train_state(model), batch)
 
     print(f"lpips kernels at {WIDTH}x{HEIGHT}, random-feature VGG16 seed "

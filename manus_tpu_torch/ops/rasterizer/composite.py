@@ -5,9 +5,14 @@ composites its depth-ordered pair segment of the [16, P] payload front to
 back (numerics in csrc/composite.cu and oracle.py).
 
   * `CompositeFn` binds the forward and backward CUDA kernels
-    (csrc/composite.cu) as one autograd function;
+    (csrc/composite.cu) as one autograd function. The kernels cut every
+    tile's segment into depth chunks and give each (tile, chunk) its own
+    CTA; `ChunkState` is what the forward saves for the backward;
   * `composite_tiles_torch` is the plain PyTorch version of the same math
     over [T, chunk, 256] blocks, differentiated by autograd;
+  * `composite_tiles_split_torch` and `composite_split_backward_torch`
+    are the plain model of the kernels' split by depth chunk, for the
+    tests: the same function, computed the way the kernels compute it;
   * `composite_tiles` launches the kernels for a CUDA payload and runs the
     plain version for a CPU payload.
 
@@ -17,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -39,21 +45,45 @@ from manus_tpu_torch.ops.rasterizer.payload import (
 from manus_tpu_torch.utils import cuda_build
 
 LOG_T_EPS = math.log(T_EPS)
+# The split forward walks a chunk a second time, pair by pair, for a pixel
+# whose log T at the chunk's start plus the chunk's whole sum falls below
+# LOG_T_EPS + STOP_MARGIN. 0 is the rule; a test raises it to drive the
+# case that rounding alone makes rare: a second walk that does not stop.
+STOP_MARGIN = 0.0
 TILE = 16
 N_PX = TILE * TILE
 
-_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_float)
 _SIGNATURES = {
+    "composite_chunk": ([], ctypes.c_int),
+    "composite_occupancy": ([_P], ctypes.c_int),
     "composite_fwd": (
-        [_P, _I64, _P, _P, _I32, _I32, _P, _P, _P, _P, _P], ctypes.c_int),
+        [_P, _I64, _P, _P, _I32, _I32, _P, _P, _P, _P, _P, _P, _I32, _P, _P,
+         _F32, _P], ctypes.c_int),
     "composite_bwd": (
-        [_P, _I64, _P, _I32, _I32, _P, _P, _P, _P, _P, _P, _P], ctypes.c_int),
+        [_P, _I64, _P, _P, _I32, _I32, _P, _P, _I32, _P, _P, _P, _P, _P, _P,
+         _P, _P], ctypes.c_int),
     "composite_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
 
 def _library():
     return cuda_build.load("composite", _SIGNATURES)
+
+
+def chunk_size() -> int:
+    """Pairs per (tile, chunk) item of the CUDA kernels."""
+    return _library().composite_chunk()
+
+
+def kernel_occupancy() -> dict:
+    """CTAs an SM can hold of each composite kernel, by the CUDA runtime's
+    occupancy calculator."""
+    lib = _library()
+    n = (ctypes.c_int * 3)()
+    _check_launch(lib, lib.composite_occupancy(n), "composite_occupancy")
+    return dict(zip(("chunk_pass", "rewalk", "bwd"), n))
 
 
 def _check_launch(lib, rc: int, what: str):
@@ -79,50 +109,69 @@ def _check_inputs(payload, offsets, counts, ntx: int, nty: int):
 
 
 def composite_fwd_cuda(payload, offsets, counts, ntx: int, nty: int):
-    """Launch the forward kernel. Returns (rgb [T,3,256], t_final [T,256],
-    log_t [T,256], n_walk [T,256] int32); the last two feed the backward."""
+    """Launch the forward (csrc/composite.cu: the plan of (tile, chunk)
+    items, the chunk pass and the second walk, three device kernels, one
+    count). Returns (rgb [T,3,256], t_final [T,256], log_t [T,256], n_walk
+    [T,256] int32, ChunkState); the last three feed the backward."""
     _check_inputs(payload, offsets, counts, ntx, nty)
     lib = _library()
     t = ntx * nty
     dev = payload.device
+    n_items = max_items(payload.shape[1], t, lib.composite_chunk())
     rgb = torch.empty(t, 3, N_PX, dtype=torch.float32, device=dev)
     t_final = torch.empty(t, N_PX, dtype=torch.float32, device=dev)
     log_t = torch.empty(t, N_PX, dtype=torch.float32, device=dev)
     n_walk = torch.empty(t, N_PX, dtype=torch.int32, device=dev)
+    tables = torch.empty(t + 1 + n_items, dtype=torch.int32, device=dev)
+    state = ChunkState(
+        tables[:t + 1], tables[t + 1:],
+        torch.empty(n_items, 4, N_PX, dtype=torch.float32, device=dev))
+    # per item and pixel: the chunk's own log-T sum, colour and last pair
+    chunk_sums = torch.empty(n_items, 5, N_PX, dtype=torch.float32, device=dev)
     rc = lib.composite_fwd(
         payload.data_ptr(), payload.shape[1], offsets.data_ptr(),
         counts.data_ptr(), t, ntx, rgb.data_ptr(), t_final.data_ptr(),
-        log_t.data_ptr(), n_walk.data_ptr(),
+        log_t.data_ptr(), n_walk.data_ptr(), state.item_start.data_ptr(),
+        state.item_tile.data_ptr(), n_items, chunk_sums.data_ptr(),
+        state.saved.data_ptr(), STOP_MARGIN,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _check_launch(lib, rc, "composite_fwd")
     composite_fwd_cuda.launches += 1
-    return rgb, t_final, log_t, n_walk
+    return rgb, t_final, log_t, n_walk, state
 
 
 composite_fwd_cuda.launches = 0
 
 
 def composite_bwd_cuda(payload, offsets, counts, ntx: int, nty: int,
-                       d_rgb, d_tfin, t_final, log_t, n_walk):
-    """Launch the backward kernel. Returns d_payload [16, P]."""
+                       d_rgb, d_tfin, t_final, log_t, n_walk,
+                       state: ChunkState):
+    """Launch the backward kernel on what the forward returned. Returns
+    d_payload [16, P]."""
     _check_inputs(payload, offsets, counts, ntx, nty)
+    lib = _library()
     t = ntx * nty
+    n_items = max_items(payload.shape[1], t, lib.composite_chunk())
     for name, x, shape, dtype in (
         ("d_rgb", d_rgb, (t, 3, N_PX), torch.float32),
         ("d_tfin", d_tfin, (t, N_PX), torch.float32),
         ("t_final", t_final, (t, N_PX), torch.float32),
         ("log_t", log_t, (t, N_PX), torch.float32),
         ("n_walk", n_walk, (t, N_PX), torch.int32),
+        ("state.item_start", state.item_start, (t + 1,), torch.int32),
+        ("state.item_tile", state.item_tile, (n_items,), torch.int32),
+        ("state.saved", state.saved, (n_items, 4, N_PX), torch.float32),
     ):
         if x.device != payload.device or x.dtype != dtype \
                 or x.shape != shape or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dtype} {shape} "
                              f"tensor on {payload.device}")
-    lib = _library()
     d_payload = torch.zeros_like(payload)
     rc = lib.composite_bwd(
-        payload.data_ptr(), payload.shape[1], offsets.data_ptr(), t, ntx,
+        payload.data_ptr(), payload.shape[1], offsets.data_ptr(),
+        counts.data_ptr(), t, ntx, state.item_start.data_ptr(),
+        state.item_tile.data_ptr(), n_items, state.saved.data_ptr(),
         d_rgb.data_ptr(), d_tfin.data_ptr(), t_final.data_ptr(),
         log_t.data_ptr(), n_walk.data_ptr(), d_payload.data_ptr(),
         torch.cuda.current_stream(payload.device).cuda_stream,
@@ -140,21 +189,23 @@ class CompositeFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, payload, offsets, counts, ntx: int, nty: int):
-        rgb, t_final, log_t, n_walk = composite_fwd_cuda(
+        rgb, t_final, log_t, n_walk, state = composite_fwd_cuda(
             payload, offsets, counts, ntx, nty)
-        ctx.save_for_backward(payload, offsets, counts, t_final, log_t, n_walk)
+        ctx.save_for_backward(payload, offsets, counts, t_final, log_t, n_walk,
+                              *state)
         ctx.grid = (ntx, nty)
         return rgb, t_final
 
     @staticmethod
     def backward(ctx, d_rgb, d_tfin):
-        payload, offsets, counts, t_final, log_t, n_walk = ctx.saved_tensors
+        payload, offsets, counts, t_final, log_t, n_walk, *state = \
+            ctx.saved_tensors
         d_rgb = torch.zeros_like(t_final).unsqueeze(1).expand(-1, 3, -1) \
             if d_rgb is None else d_rgb
         d_tfin = torch.zeros_like(t_final) if d_tfin is None else d_tfin
         d_payload = composite_bwd_cuda(
             payload, offsets, counts, *ctx.grid, d_rgb.contiguous(),
-            d_tfin.contiguous(), t_final, log_t, n_walk)
+            d_tfin.contiguous(), t_final, log_t, n_walk, ChunkState(*state))
         return d_payload, None, None, None, None
 
 
@@ -208,6 +259,174 @@ def composite_tiles_torch(payload, offsets, counts, ntx: int, nty: int,
         t_min = t_min.index_copy(0, live, torch.minimum(t_min[live], chunk_min))
         log_t = log_t.index_copy(0, live, log_cp[:, -1, :])
     return accum, t_min
+
+
+class ChunkState(NamedTuple):
+    """What the split forward saves for the split backward. A tile's
+    segment is cut into depth chunks of `chunk` pairs; one item is one
+    (tile, chunk), numbered tile by tile, front chunk first."""
+
+    item_start: torch.Tensor  # [T + 1] int32 first item of each tile; [T] = items in all
+    item_tile: torch.Tensor  # [max_items] int32 the tile of each item
+    saved: torch.Tensor  # [max_items, 4, 256] f32: log T at the chunk's
+    # start, then the colour the chunk added; per pixel only the chunks up
+    # to the one that holds its last included pair are filled in
+
+
+def max_items(p: int, t: int, chunk: int) -> int:
+    """The static bound on the number of (tile, chunk) items: the segments
+    are disjoint within the P pair columns, and every tile with pairs may
+    end in one partial chunk."""
+    return -(-p // chunk) + t
+
+
+def _chunk_terms(payload, cols, px, py):
+    """Per pair column and pixel of one tile, [n, 256] each: alpha (clamped),
+    the gate (the pair counts at the pixel), exp(power), dx, dy."""
+    f = payload[:, cols]
+    dx = px[None, :] - f[F_MEAN_X][:, None]
+    dy = py[None, :] - f[F_MEAN_Y][:, None]
+    ca, cb, cc = (f[i][:, None] for i in (F_CONIC_A, F_CONIC_B, F_CONIC_C))
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    g = torch.exp(power)
+    alpha = torch.clamp(f[F_OPACITY][:, None] * g, max=ALPHA_MAX)
+    gate = (power <= 0.0) & (alpha >= ALPHA_EPS)
+    return torch.where(gate, alpha, 0.0), gate, g, dx, dy
+
+
+@torch.no_grad()
+def composite_tiles_split_torch(payload, offsets, counts, ntx: int, nty: int,
+                                chunk: int):
+    """The plain model of the CUDA forward's split by depth range.
+
+    Pass 1, every (tile, chunk) item on its own: from T = 1 and with no
+    stop rule, L = the sum of log1p(-alpha) over the chunk's gated pairs,
+    K = the colour the chunk would add, and the index + 1 of its last
+    gated pair. Pass 2, per pixel over its tile's chunks in order, with
+    `pre` the log T at the chunk's start: while pre + L >= log(1e-4) the
+    chunk is included whole (it adds exp(pre) K, and pre += L); the first
+    chunk that fails is walked pair by pair from the true `pre` under the
+    stop rule, and if rounding lets that walk reach the chunk's end after
+    all, the pixel goes on with the next chunk.
+
+    Returns rgb [T, 3, 256], t_final, log_t, n_walk (int32) [T, 256] with
+    the kernels' meaning, and the ChunkState for
+    composite_split_backward_torch. Used by the tests, by nothing on the
+    main path."""
+    dev = payload.device
+    t, p = ntx * nty, payload.shape[1]
+    px, py = tile_pixel_coords(ntx, nty, dev)
+    counts_l = counts.long()
+    n_chunks = (counts_l + chunk - 1) // chunk
+    item_start = torch.cat([n_chunks.new_zeros(1), torch.cumsum(n_chunks, 0)])
+    n_items = max_items(p, t, chunk)
+    saved = torch.zeros(n_items, 4, N_PX, device=dev)
+    item_tile = torch.full((n_items,), -1, dtype=torch.int32, device=dev)
+    rgb = torch.zeros(t, 3, N_PX, device=dev)
+    log_t = torch.zeros(t, N_PX, device=dev)
+    n_walk = torch.zeros(t, N_PX, dtype=torch.int32, device=dev)
+    for tile in torch.nonzero(counts_l).squeeze(1).tolist():
+        first, count = int(item_start[tile]), int(counts_l[tile])
+        pre = torch.zeros(N_PX, device=dev)
+        col = torch.zeros(3, N_PX, device=dev)
+        last = torch.zeros(N_PX, dtype=torch.long, device=dev)
+        done = torch.zeros(N_PX, dtype=torch.bool, device=dev)
+        for c in range(int(n_chunks[tile])):
+            lo, hi = c * chunk, min((c + 1) * chunk, count)
+            cols = int(offsets[tile]) + torch.arange(lo, hi, device=dev)
+            alpha, gate, _, _, _ = _chunk_terms(payload, cols, px[tile], py[tile])
+            colours = payload[F_R:F_R + 3, cols]
+            idx1 = torch.arange(lo + 1, hi + 1, device=dev)[:, None]
+            log1m = torch.log1p(-alpha)
+            # pass 1: the chunk alone, from T = 1
+            rel = torch.cumsum(log1m, 0)
+            chunk_l = rel[-1]
+            chunk_k = colours @ (alpha * torch.exp(rel - log1m))
+            chunk_last = torch.where(gate, idx1, 0).amax(0)
+            # pass 2
+            item_tile[first + c] = tile
+            saved[first + c, 0] = pre
+            walk = ~done & (pre + chunk_l < LOG_T_EPS + STOP_MARGIN)
+            whole = ~done & ~walk
+            lt = pre[None, :] + rel
+            incl = gate & (lt >= LOG_T_EPS)
+            walk_k = colours @ torch.where(incl, alpha * torch.exp(lt - log1m), 0.0)
+            walk_last = torch.where(incl, idx1, 0).amax(0)
+            walk_lt = torch.where(incl, lt, math.inf).amin(0)  # lt only falls
+            walk_lt = torch.where(incl.any(0), walk_lt, pre)
+            add = torch.where(walk, walk_k,
+                              torch.where(whole, torch.exp(pre) * chunk_k, 0.0))
+            saved[first + c, 1:] = add
+            col = col + add
+            last = torch.where(walk, torch.maximum(last, walk_last),
+                               torch.where(whole, torch.maximum(last, chunk_last),
+                                           last))
+            pre = torch.where(walk, walk_lt,
+                              torch.where(whole, pre + chunk_l, pre))
+            done = done | (walk & (gate & ~incl).any(0))
+        rgb[tile], log_t[tile], n_walk[tile] = col, pre, last.to(torch.int32)
+    state = ChunkState(item_start.to(torch.int32), item_tile, saved)
+    return rgb, torch.exp(log_t), log_t, n_walk, state
+
+
+@torch.no_grad()
+def composite_split_backward_torch(payload, offsets, counts, ntx: int, nty: int,
+                                   chunk: int, d_rgb, d_tfin, t_final, log_t,
+                                   n_walk, state: ChunkState):
+    """The plain model of the CUDA backward: d_payload [16, P] from the
+    split forward's outputs and saved state, every (tile, chunk) item on
+    its own. A pixel takes part in the chunks up to the one that holds its
+    last included pair (n_walk). There it starts from the forward's final
+    log T and nothing behind; in an earlier chunk from the next chunk's
+    saved log T and, behind, the saved colours of the later chunks summed
+    farthest first (not the total less a prefix: that cancels)."""
+    dev = payload.device
+    px, py = tile_pixel_coords(ntx, nty, dev)
+    counts_l = counts.long()
+    d_payload = torch.zeros_like(payload)
+    for tile in torch.nonzero(counts_l).squeeze(1).tolist():
+        first, count = int(state.item_start[tile]), int(counts_l[tile])
+        n_chunks = int(state.item_start[tile + 1]) - first
+        nw = n_walk[tile].long()
+        last_chunk = torch.div(nw - 1, chunk, rounding_mode="floor")
+        tfin_term = t_final[tile] * d_tfin[tile]
+        dr = d_rgb[tile]  # [3, 256]
+        for c in range(n_chunks):
+            lo, hi = c * chunk, min((c + 1) * chunk, count)
+            if not bool((nw > lo).any()):
+                continue
+            behind = torch.zeros(3, N_PX, device=dev)
+            for k in range(n_chunks - 1, c, -1):
+                behind += torch.where(last_chunk >= k, state.saved[first + k, 1:], 0.0)
+            lt_end = log_t[tile]
+            if c + 1 < n_chunks:
+                lt_end = torch.where(last_chunk > c, state.saved[first + c + 1, 0],
+                                     lt_end)
+            cols = int(offsets[tile]) + torch.arange(lo, hi, device=dev)
+            alpha, gate, g, dx, dy = _chunk_terms(payload, cols, px[tile], py[tile])
+            f = payload[:, cols]
+            act = gate & (torch.arange(lo, hi, device=dev)[:, None] < nw[None, :])
+            log1m = torch.where(act, torch.log1p(-alpha), 0.0)
+            from_here = torch.flip(torch.cumsum(torch.flip(log1m, [0]), 0), [0])
+            t_bef = torch.exp(lt_end[None, :] - from_here)
+            w = torch.where(act, alpha * t_bef, 0.0)
+            cd = f[F_R:F_R + 3].T @ dr  # [n, 256]
+            wcd = w * cd
+            suffix = (dr * behind).sum(0)[None, :] + \
+                torch.flip(torch.cumsum(torch.flip(wcd, [0]), 0), [0]) - wcd
+            d_alpha = torch.where(
+                act, t_bef * cd - (suffix + tfin_term) / (1.0 - alpha), 0.0)
+            d_power = d_alpha * f[F_OPACITY][:, None] * g  # straight through the clamp
+            dpx, dpy = d_power * dx, d_power * dy
+            ca, cb, cc = (f[i][:, None] for i in (F_CONIC_A, F_CONIC_B, F_CONIC_C))
+            d_payload[F_MEAN_X, cols] = (ca * dpx + cb * dpy).sum(1)
+            d_payload[F_MEAN_Y, cols] = (cc * dpy + cb * dpx).sum(1)
+            d_payload[F_CONIC_A, cols] = (-0.5 * dpx * dx).sum(1)
+            d_payload[F_CONIC_B, cols] = (-dpx * dy).sum(1)
+            d_payload[F_CONIC_C, cols] = (-0.5 * dpy * dy).sum(1)
+            d_payload[F_OPACITY, cols] = (d_alpha * g).sum(1)
+            d_payload[F_R:F_R + 3, cols] = (w[None] * dr[:, None, :]).sum(2)
+    return d_payload
 
 
 def composite_tiles(payload, offsets, counts, ntx: int, nty: int,

@@ -86,7 +86,7 @@ def stage_times(cfg, model, batch, lpips_params=None):
         def kernel():
             return composite.composite_fwd_cuda(
                 pay, bins.tile_offsets, bins.tile_counts, ntx, nty)
-        rgb, tfin, _, _ = kernel()
+        rgb, tfin = kernel()[:2]
 
         def image_and_losses():
             img, _ = composite.tiles_to_image(rgb, tfin, batch["bg"], ntx, nty, w, h)

@@ -4,8 +4,10 @@ Marked `cuda`: they skip where torch.cuda.is_available() is false, and
 run on an NVIDIA card with `python -m pytest -m cuda tests/test_torch_cuda.py`.
 Small scenes that exercise the edges the bench scene may not: tiles with
 no pairs, counts clamped by the per-tile cap while the offsets are not,
-pair counts that are not a multiple of the kernels' batches, a non-zero
-background (the d T_final path), and both early-exit paths.
+pair counts that are not a multiple of the kernels' chunks and batches, a
+non-zero background (the d T_final path), both early-exit paths, a tile
+at the 4,096-pair cap beside shallow ones (many depth chunks, pixels that
+stop in different chunks), and a second walk that does not stop.
 """
 import numpy as np
 import pytest
@@ -27,10 +29,18 @@ def dev():
     return torch.device("cuda")
 
 
-def _scene(n, seed, dev, size, opacity=(0.2, 0.95), spread=0.5):
+def _scene(n, seed, dev, size, opacity=(0.2, 0.95), spread=0.5,
+           scale=(0.02, 0.12), clusters=()):
+    """n gaussians uniform in a cube of half-width `spread`, and for each
+    (count, centre x, centre y, half-width) of `clusters` that many more
+    around that centre."""
     rng = np.random.RandomState(seed)
     means = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
-    scales = rng.uniform(0.02, 0.12, (n, 3)).astype(np.float32)
+    for m, cx, cy, half in clusters:
+        extra = rng.uniform(-half, half, (m, 3)).astype(np.float32)
+        means = np.concatenate([means, extra + np.float32([cx, cy, 0.0])])
+    n = means.shape[0]
+    scales = rng.uniform(*scale, (n, 3)).astype(np.float32)
     quats = rng.normal(size=(n, 4)).astype(np.float32)
     t = lambda x: torch.tensor(x, device=dev)
     cov = covariance_from_scaling_rotation(t(scales), t(quats))
@@ -60,21 +70,30 @@ def _render_grads(s, backend, max_pairs, bg):
 # (gaussians, seed, image size, per-tile cap, opacity range): a sparse
 # scene with empty tiles, a dense one whose per-tile cap binds (counts
 # clamped, offsets not) with counts past both batch sizes, and an opaque
-# one where every pixel saturates early.
+# one where every pixel saturates early. Then, with small faint gaussians:
+# a deep scene (a cluster that fills one tile to the 4,096 cap, two that
+# leave tiles between 1 and 3 chunks deep, most tiles empty) and a spread
+# one (every tile tens of pairs).
 CASES = [
-    (60, 1, 96, 4096, (0.2, 0.95)),
-    (3000, 2, 64, 300, (0.2, 0.95)),
-    (2000, 3, 64, 4096, (0.9, 0.99)),
+    (60, 1, 96, 4096, (0.2, 0.95), {}),
+    (3000, 2, 64, 300, (0.2, 0.95), {}),
+    (2000, 3, 64, 4096, (0.9, 0.99), {}),
+    (20, 4, 128, 4096, (0.02, 0.3), dict(
+        scale=(0.004, 0.02),
+        clusters=((7000, -0.52, -0.52, 0.1), (500, 0.6, 0.3, 0.15),
+                  (900, 0.2, -0.7, 0.15)))),
+    (6000, 6, 256, 4096, (0.05, 0.6), dict(scale=(0.004, 0.03), spread=1.3)),
 ]
 
 
-@pytest.mark.parametrize("n,seed,size,max_pairs,opacity", CASES,
-                         ids=["sparse", "capped", "opaque"])
-def test_cuda_composite_matches_plain(dev, n, seed, size, max_pairs, opacity):
+@pytest.mark.parametrize("n,seed,size,max_pairs,opacity,kw", CASES,
+                         ids=["sparse", "capped", "opaque", "deep", "spread"])
+def test_cuda_composite_matches_plain(dev, n, seed, size, max_pairs, opacity,
+                                      kw):
     """Forward 1e-4 max abs on image and T_final; gradients of means, cov,
     colours, opacity and means2d_offset within normalised 1e-3 (sums of
     up to thousands of pairs in another order)."""
-    s = _scene(n, seed, dev, size, opacity)
+    s = _scene(n, seed, dev, size, opacity, **kw)
     bg = torch.tensor([0.3, 0.2, 0.1], device=dev)
     out_k, g_k = _render_grads(s, "cuda", max_pairs, bg)
     out_p, g_p = _render_grads(s, "torch", max_pairs, bg)
@@ -82,13 +101,95 @@ def test_cuda_composite_matches_plain(dev, n, seed, size, max_pairs, opacity):
     assert (out_k.render - out_p.render).abs().max().item() <= 1e-4
     assert (out_k.t_final - out_p.t_final).abs().max().item() <= 1e-4
     assert int(out_k.overflow_far) == int(out_p.overflow_far)
-    if max_pairs < 4096:
-        assert int(out_k.overflow_far) > 0
+    if max_pairs < 4096 or kw.get("clusters"):
+        assert int(out_k.overflow_far) > 0  # the per-tile cap cuts a segment
     for name, a, b in zip(("means", "cov", "colors", "opacity", "m2d"), g_p, g_k):
         scale = a.abs().max().item()
         assert scale > 0, name
         err = (a - b).abs().max().item() / scale
         assert err <= 1e-3, f"{name}: normalised err {err}"
+
+
+def _payload(dev, raw_counts, seed, ntx, opacity=(0.02, 0.3), sigma=(1.0, 4.0)):
+    """A [16, P] payload made with numpy whose tile t owns raw_counts[t]
+    pair columns of small random gaussians around it."""
+    rng = np.random.RandomState(seed)
+    raw = np.asarray(raw_counts, np.int64)
+    offsets = np.concatenate([[0], np.cumsum(raw)[:-1]])
+    pay = np.zeros((16, int(raw.sum()) + 7), np.float32)
+    for t, (o, n) in enumerate(zip(offsets, raw)):
+        sl = slice(o, o + n)
+        pay[0, sl] = rng.uniform((t % ntx) * 16 - 2, (t % ntx) * 16 + 18, n)
+        pay[1, sl] = rng.uniform((t // ntx) * 16 - 2, (t // ntx) * 16 + 18, n)
+        s1, s2 = rng.uniform(*sigma, (2, n))
+        th = rng.uniform(0, np.pi, n)
+        pay[2, sl] = np.cos(th) ** 2 / s1 ** 2 + np.sin(th) ** 2 / s2 ** 2
+        pay[4, sl] = np.sin(th) ** 2 / s1 ** 2 + np.cos(th) ** 2 / s2 ** 2
+        pay[3, sl] = np.sin(th) * np.cos(th) * (1 / s1 ** 2 - 1 / s2 ** 2)
+        pay[5, sl] = rng.uniform(*opacity, n)
+        pay[6:9, sl] = rng.uniform(0, 1, (3, n))
+    t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
+    return torch.tensor(pay, device=dev), t(offsets), t(raw)
+
+
+# Tiles of 2x2 (x 1): at the cap, inside one chunk, empty, a few chunks.
+DEEP_COUNTS = [4096, 300, 0, 700]
+
+
+def _cotangents(dev, t, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randn(t, 3, 256, generator=g).to(dev),
+            torch.randn(t, 256, generator=g).to(dev))
+
+
+def test_cuda_composite_gives_equal_bits(dev):
+    """Two launches of the forward and of the backward give the same bits:
+    every output has one writer and every sum a fixed order, no atomics."""
+    pay, offs, cnts = _payload(dev, DEEP_COUNTS, 0, 2)
+    fwd = composite.composite_fwd_cuda(pay, offs, cnts, 2, 2)
+    again = composite.composite_fwd_cuda(pay, offs, cnts, 2, 2)
+    for a, b in zip(fwd[:4], again[:4]):
+        assert torch.equal(a, b)
+    assert int(fwd[3].max()) > 3 * composite.chunk_size()
+    d_rgb, d_tfin = _cotangents(dev, 4)
+    d1, d2 = (composite.composite_bwd_cuda(pay, offs, cnts, 2, 2, d_rgb, d_tfin,
+                                           *fwd[1:]) for _ in range(2))
+    assert torch.equal(d1, d2) and d1.abs().max().item() > 0
+
+
+@pytest.mark.parametrize("margin", [0.0, 2.5], ids=["rule", "second_walk_goes_on"])
+def test_cuda_composite_matches_split_model(dev, monkeypatch, margin):
+    """The kernels against their plain model of the same split, chunk for
+    chunk: n_walk equal but where log T lands within rounding of log(1e-4)
+    (at most 0.1% of the pixels), log T after the last included pair and
+    the colours within 1e-4 elsewhere, d_payload per field within 1e-3 of
+    the field's largest value. With a margin on the rule that sends a
+    chunk to its second walk, most second walks end without a stop and
+    the thread goes on through the later chunks: same results."""
+    pay, offs, cnts = _payload(dev, DEEP_COUNTS, 1, 2, opacity=(0.02, 0.15))
+    want = composite.composite_tiles_split_torch(pay, offs, cnts, 2, 2,
+                                                 composite.chunk_size())
+    monkeypatch.setattr(composite, "STOP_MARGIN", margin)
+    rgb, tfin, log_t, n_walk, state = composite.composite_fwd_cuda(
+        pay, offs, cnts, 2, 2)
+    same = n_walk == want[3]
+    assert same.float().mean().item() >= 0.999
+    assert torch.equal(state.item_start, want[4].item_start)
+    assert ((rgb - want[0]).abs().amax(1)[same]).max().item() <= 1e-4
+    assert ((log_t - want[2]).abs()[same]).max().item() <= 1e-4
+    assert (tfin - torch.exp(log_t)).abs().max().item() <= 1e-6
+    stop_chunks = torch.unique((n_walk[0].long() - 1) // composite.chunk_size())
+    assert len(stop_chunks) >= 3  # pixels of the deep tile stop in several chunks
+    d_rgb, d_tfin = _cotangents(dev, 4)
+    got = composite.composite_bwd_cuda(pay, offs, cnts, 2, 2, d_rgb, d_tfin,
+                                       tfin, log_t, n_walk, state)
+    ref = composite.composite_split_backward_torch(
+        pay, offs, cnts, 2, 2, composite.chunk_size(), d_rgb, d_tfin, *want[1:])
+    for f in range(9):
+        scale = ref[f].abs().max().item()
+        assert scale > 0
+        assert (got[f] - ref[f]).abs().max().item() <= 1e-3 * scale, f
+    assert not got[9:].any()
 
 
 def test_cuda_wrappers_count_launches_and_check_inputs(dev):
@@ -103,7 +204,7 @@ def test_cuda_wrappers_count_launches_and_check_inputs(dev):
         fwd(pay, cnt.long(), cnt, 4, 4)
     with pytest.raises(ValueError, match="float32"):
         fwd(pay.double(), cnt, cnt, 4, 4)
-    rgb, tf, _, n_walk = fwd(pay, cnt, cnt, 4, 4)
+    rgb, tf, _, n_walk, _ = fwd(pay, cnt, cnt, 4, 4)
     assert rgb.abs().max().item() == 0 and tf.min().item() == 1.0
     assert n_walk.max().item() == 0
 
