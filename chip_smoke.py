@@ -34,7 +34,12 @@ Phases, each of which exits non-zero on failure:
      working CTAs and waves of the card's SMs, device time from a CUDA
      graph of launches, TFLOP/s, the host time of one launch call, and,
      for a split-K plan, that two launches give equal bits), the head
-     kernels at each of the 5 stages,
+     kernels at each of the 5 stages as the step calls them (the stage
+     layout's pixel span; equal bits over two launches and, for the
+     forward, over two CUDA-graph replays; the backward with both
+     outputs and with da alone, whose da must equal the other's; times
+     from graph replays rotating over copies of the features past
+     COLD_BYTES, so that every launch reads HBM),
      the image conv (kernel 7) at one layer's shape, and lpips_distance
      with its image gradient through the kernels against the plain chain
      (run on the CPU); per-layer times, plain times, library times and
@@ -52,6 +57,7 @@ power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -132,10 +138,16 @@ DIST_RTOL, GRAD_COS, GRAD_NORM_RTOL = 1e-3, 0.998, 1e-2
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet).
 BF16_FLOP_PER_S = 989e12
 # fp32 operations per feature element in csrc/lpips_head.cu: the forward's
-# two squared norms, two divisions, difference, square, weight and sum;
-# the backward's norms, divisions, gradient, two dot products and two
-# outputs.
-HEAD_FWD_FLOP, HEAD_BWD_FLOP = 10, 21
+# two squared norms (2 FMAs), the unit difference a ia - b ib (a product
+# and an FMA), its square and the weighted sum (an FMA): 10; the
+# backward's norms (4), g = w2 (a ia - b ib) (4), the dot products with a
+# and b (2 FMAs), g again for the stores (4) and each output (a product
+# and an FMA): 22, or 17 for da alone (one dot product, one output).
+HEAD_FWD_FLOP, HEAD_BWD_FLOP, HEAD_BWD_DA_FLOP = 10, 22, 17
+# The head kernels are timed rotating over copies of a stage's features
+# whose pixel spans add up to more than this (twice the 50 MB L2), so
+# that every launch reads them from HBM, as the step's launches do.
+COLD_BYTES = 100e6
 LPIPS_SEED = 0
 REPLACES = {
     "composite_fwd": "manus_tpu/ops/rasterizer/pallas_backend.py:105",
@@ -213,6 +225,18 @@ def cuda_graph_ms(fn, reps: int) -> float:
             fn()
     graph.replay()
     return cuda_ms(graph.replay, 3) / reps
+
+
+def rotated_graph_ms(launch, copies, reps: int = 20) -> float:
+    """Device ms per launch(*copy) from CUDA-graph replays of at least
+    reps launches that cycle through `copies` (a multiple of their count).
+    Every launch's outputs are kept, so each writes its own memory; where
+    the copies' bytes exceed L2, every launch reads and writes HBM."""
+    n = len(copies)
+    reps = -(-max(reps, n) // n) * n
+    cycle = itertools.cycle(copies)
+    kept = []
+    return cuda_graph_ms(lambda: kept.append(launch(*next(cycle))), reps)
 
 
 def host_us(fn, reps: int = 100) -> float:
@@ -631,18 +655,27 @@ class Sweep:
         return out
 
 
-def lpips_kernel_phase(batch, dev):
-    """The LPIPS kernels against their plain versions at 512x512."""
+def lpips_inputs(batch, dev):
+    """The LPIPS phase's inputs: the random-feature VGG16 of LPIPS_SEED,
+    the scene's gt image, a copy perturbed from seed 1, and the generator
+    that drew it (its later draws are the kernels' cotangents)."""
     params = lpips_mod.random_lpips_params(LPIPS_SEED, device=dev)
-    packed = lpips_mod.pack_lpips_params(params)
     gt = batch["rgb"][0]
     gen = torch.Generator(device=dev).manual_seed(1)
     pred = (gt + 0.1 * torch.randn(gt.shape, device=dev, generator=gen)
             ).clamp(0, 1)
+    return params, gt, pred, gen
+
+
+def lpips_kernel_phase(batch, dev):
+    """The LPIPS kernels against their plain versions at 512x512."""
+    params, gt, pred, gen = lpips_inputs(batch, dev)
+    packed = lpips_mod.pack_lpips_params(params)
     layouts = lpips_mod._vgg_stage_layouts(HEIGHT, WIDTH)
     sweeps = {n: Sweep(n) for n in ("conv3x3_layout", "conv3x3_layout_dx",
                                     "lpips_head_fwd", "lpips_head_bwd",
                                     "conv3x3")}
+    da_only = Sweep("lpips_head_bwd da-only")
     feats = {}
     with torch.no_grad():
         for tag, img in (("gt", gt), ("pred", pred)):
@@ -664,9 +697,10 @@ def lpips_kernel_phase(batch, dev):
                 out.append(xl)
             feats[tag] = out
         for si, L in enumerate(layouts):
-            head_checks(sweeps, feats["pred"][si], feats["gt"][si],
+            head_checks(sweeps, da_only, feats["pred"][si], feats["gt"][si],
                         packed.lin_eff(si, L), si, L, gen)
     results = {n: sw.result() for n, sw in sweeps.items()}
+    da_only.result()
     distance_check(params, pred, gt)
     return params, results
 
@@ -752,34 +786,77 @@ def image_conv_check(sweep, params, xl, p, L):
               bound_ms(nbytes, flops, BF16_FLOP_PER_S), lib)
 
 
-def head_checks(sweeps, a, b, lin_eff, si, L, gen):
-    """One stage's head kernels against their plain versions. The bounds
-    count the h*w pixels' features (every stage's channels are real), not
-    the layout's zero rows."""
+def head_checks(sweeps, da_only, a, b, lin_eff, si, L, gen):
+    """One stage's head kernels as the step calls them, with the stage's
+    layout L (only its pixel span is read), against their plain versions
+    on the same span: equal bits over two launches of each, and over two
+    replays of a CUDA graph of the forward (its ticket's reset), and the
+    da-only backward's da equal to the two-output form's. Times from
+    CUDA-graph replays rotating over copies of (a, b) whose spans exceed
+    COLD_BYTES: HBM-cold. The bounds count the h*w pixels' features
+    (every stage's channels are real), not the layout's zero rows. The
+    backward's row is the two-output form; the da-only form, which the
+    step runs (the gt features are detached), goes to `da_only`."""
     px, c = L.h * L.w, a.shape[1]
-    got = conv_mod.head_fwd_cuda(a, b, lin_eff).item()
-    want = conv_mod.head_fwd_torch(a, b, lin_eff).item()
-    err = abs(got - want)
+    copies = [(a, b)] + [(a.clone(), b.clone()) for _ in range(
+        int(COLD_BYTES // (4 * L.n_valid * c)))]
+
+    def fwd(x, y):
+        return conv_mod.head_fwd_cuda(x, y, lin_eff, L)
+
+    got = fwd(a, b)
+    want = conv_mod.head_fwd_torch(a, b, lin_eff, L).item()
+    err = abs(got.item() - want)
     check(err <= HEAD_FWD_RTOL * abs(want) and want > 0,
-          f"stage {si} head forward {got} against {want}")
-    ms = cuda_ms(lambda: conv_mod.head_fwd_cuda(a, b, lin_eff), 20)
-    plain = cuda_ms(lambda: conv_mod.head_fwd_torch(a, b, lin_eff), 3)
-    nbytes = 4 * px * c + 4 * c
+          f"stage {si} head forward {got.item()} against {want}")
+    check(torch.equal(fwd(a, b), got),
+          f"stage {si}: two launches of the head forward differ")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fwd(a, b)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays.append(out.clone())
+    check(all(torch.equal(r, got) for r in replays),
+          f"stage {si}: replays of the head forward differ from a launch")
+    ms = rotated_graph_ms(fwd, copies)
+    plain = cuda_ms(lambda: conv_mod.head_fwd_torch(a, b, lin_eff, L), 3)
     sweeps["lpips_head_fwd"].add(
         f"stage {si}", err, 0.0, ms, plain,
-        bound_ms(nbytes, HEAD_FWD_FLOP * px * c, FP32_FLOP_PER_S), None)
+        bound_ms(4 * px * c + 4 * c, HEAD_FWD_FLOP * px * c, FP32_FLOP_PER_S),
+        None)
 
     ct = torch.rand((), device=a.device, generator=gen) + 0.5
-    da, db = conv_mod.head_bwd_cuda(a, b, lin_eff, ct)
-    da_ref, db_ref = conv_mod.head_bwd_torch(a, b, lin_eff * ct)
+
+    def bwd(x, y, need_db=True):
+        return conv_mod.head_bwd_cuda(x, y, lin_eff, ct, L, need_db)
+
+    da, db = bwd(a, b)
+    da_ref, db_ref = conv_mod.head_bwd_torch(a, b, lin_eff * ct, L)
     err_a, share_a = bf16_check(da, da_ref, f"stage {si} head da")
     err_b, share_b = bf16_check(db, db_ref, f"stage {si} head db")
-    ms = cuda_ms(lambda: conv_mod.head_bwd_cuda(a, b, lin_eff, ct), 20)
-    plain = cuda_ms(lambda: conv_mod.head_bwd_torch(a, b, lin_eff * ct), 3)
-    nbytes = 8 * px * c + 4 * c + 4
+    da2, db2 = bwd(a, b)
+    check(torch.equal(da, da2) and torch.equal(db, db2),
+          f"stage {si}: two launches of the head backward differ")
+    da_alone, none = bwd(a, b, False)
+    check(none is None and torch.equal(da_alone, da),
+          f"stage {si}: the da-only backward's da differs")
+    ms = rotated_graph_ms(bwd, copies)
+    plain = cuda_ms(lambda: conv_mod.head_bwd_torch(a, b, lin_eff * ct, L), 3)
     sweeps["lpips_head_bwd"].add(
         f"stage {si}", max(err_a, err_b), max(share_a, share_b), ms, plain,
-        bound_ms(nbytes, HEAD_BWD_FLOP * px * c, FP32_FLOP_PER_S), None)
+        bound_ms(8 * px * c + 4 * c + 4, HEAD_BWD_FLOP * px * c,
+                 FP32_FLOP_PER_S), None)
+    ms = rotated_graph_ms(lambda x, y: bwd(x, y, False), copies)
+    plain = cuda_ms(lambda: conv_mod.head_bwd_torch(
+        a, b, lin_eff * ct, L, need_db=False), 3)
+    da_only.add(f"stage {si}", err_a, share_a, ms, plain,
+                bound_ms(6 * px * c + 4 * c + 4, HEAD_BWD_DA_FLOP * px * c,
+                         FP32_FLOP_PER_S), None)
+    print(f"  head stage {si}: {L.n_valid} span rows of {L.rows}, {c} "
+          f"channels, timed over {len(copies)} copies; two launches and two "
+          f"graph replays gave equal bits, da-only da equal")
 
 
 def distance_check(params, pred, gt):

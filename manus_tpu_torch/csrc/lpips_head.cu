@@ -7,173 +7,421 @@
 // lpips_head_bwd_kernel replaces _head_bwd_kernel (_head_bwd_call).
 //
 // Math, per row of the [rows, C] bf16 feature pair (a, b), in fp32:
-//   ra = |a|, rb = |b| (over the C channels), na = a / (ra + 1e-10), ...
-//   forward:  sum over rows and channels of (na - nb)^2 * lin[c]
-//   backward: g = 2 lin ct (na - nb),
-//             da = g / (ra + eps) - a (a.g) / (safe(ra) (ra + eps)^2),
-//             db = -(the same in b), safe(r) = r > 0 ? r : 1,
-//   where ct is the cotangent of the forward's scalar. da and db are
-//   bf16, the features' type. Rows that hold no pixel are zero in a and b
-//   and add nothing.
+//   ra = |a|, rb = |b| over the C channels, ea = ra + 1e-10, ia = 1 / ea,
+//   forward:  sum over rows and channels of (a ia - b ib)^2 lin[c]
+//   backward: g = 2 (lin ct) (a ia - b ib),
+//             da = g ia - a (a.g) / (safe(ra) ea^2),
+//             db = -(g ib - b (b.g) / (safe(rb) eb^2)), safe(r) = r > 0 ? r : 1,
+//   where ct is the cotangent of the forward's scalar, read on the card.
+//   da and db are bf16, the features' type.
 //
-// What bounds it on an H100. A row is read once (2 * C * 2 bytes) for
-// about 10 fp32 operations per channel, so both kernels are bound by
-// memory: 3.35 TB/s. Design: one warp per row, a lane holding channels
-// lane, lane + 32, ... in registers (C <= 512, so at most 16 each), so a
-// row's norms, dot products and outputs come from one read; warp shuffles
-// reduce over channels. The forward writes one partial sum per CTA of
-// kRowsPerCta rows, summed in a fixed order: lanes by a butterfly, rows in
-// order within a warp, warps in order within the CTA; the caller sums the
-// partials. No float atomics, so two runs give the same bits.
+// Pixel rows only. On a stage's layout the pixels lie in the row span
+// [lo, hi) = [m_blk, m_blk + n_valid); every row outside it is zero in a
+// and b (the conv kernels zero-fill it) and adds nothing. The forward
+// reads only the span. The backward reads only the span and writes zeros
+// to the rows outside it without reading them. Without a layout the span
+// is every row.
+//
+// What bounds it on an H100: memory. A row pair is read once, 4 C bytes,
+// for 10 fp32 operations a channel (forward) or 17 (backward, da only;
+// 22 with db; g is computed twice rather than held for the stores), under
+// the card's 20 operations a byte. The bound is the pixels' bytes over
+// 3.35 TB/s: 4 px C (forward), 6 px C (backward, da only) or 8 px C (da
+// and db). What the design does to reach it:
+//   * a row is split over a group of LANES lanes, LANES = C / 8 rounded up
+//     to a power of 2 (8 at C = 64, 32 at C >= 256; at C = 512 a lane
+//     takes two vectors): each lane loads 16 bytes, 8 bf16 channels, of a
+//     and of b per vector, neighbouring lanes on neighbouring addresses.
+//     The row's norms and dot products are butterflies of __shfl_xor_sync
+//     inside the group, after which every lane of the group holds the same
+//     bits;
+//   * a group starts the loads of kUnroll rows before the first reduction
+//     (2, or 1 at C = 512): 64 bytes a thread, 64 KB an SM at 4 CTAs of
+//     256 threads, which __launch_bounds__ holds to 64 registers (each
+//     pass after the first unpacks the raw vectors again). More
+//     rows in flight, or fewer CTAs with more registers, measured no
+//     faster on an H100, and a cap that makes ptxas spill much slower
+//     (scripts/torch_head_tune.py): past a fixed 3-5 us a launch, the
+//     large stages stream at 2.5-3.0 TB/s;
+//   * lin (2 lin ct in the backward) is held in registers, loaded once;
+//   * a grid-stride loop over steps of kRows rows, on a grid fixed by the
+//     span and the SM count (one wave, at most), so the order of every sum
+//     is fixed;
+//   * the backward skips db (its dot product and its stores) when the
+//     caller passes none, as for the detached gt features of the train
+//     step; da's instructions are the same either way, and so are its bits.
+//
+// The forward's scalar comes from the same launch. Each CTA writes its
+// partial (each thread's terms in row order, then a butterfly over the
+// warp, then the warps in order) and takes a ticket from an integer
+// counter. The CTA that takes the last ticket sums the partials in a fixed
+// order (thread t those of CTAs t, t + 256, ... in order, a butterfly over
+// the warp, the warps in order) and writes the scalar. atomicInc wraps the
+// counter to 0 on the last ticket, so every launch, and every replay of a
+// CUDA graph, finds it at 0. The counter and the partials are one
+// workspace per device: the launches that share it must run on one
+// stream, as the port makes them. No float atomics: two launches give the
+// same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = 8;
-constexpr int kRowsPerCta = kWarps * kRowsPerWarp;
-constexpr int kMaxPerLane = 16;  // C <= 512
+// CTAs an SM holds of each kernel (the registers a thread may take follow
+// from it), and so the most CTAs of its grid: one wave.
+constexpr int kFwdCtasPerSm = 4;
+constexpr int kBwdCtasPerSm = 4;
+// Rows a lane group loads at once at C <= 256 (half as many at C = 512).
+constexpr int kRowsInFlight = 2;
+constexpr int kMaxC = 512;
 constexpr float kEps = 1e-10f;
 
-__device__ __forceinline__ float warp_sum(float v) {
+// One instance: LANES lanes a row, VPL 16-byte vectors a lane.
+template <int LANES, int VPL>
+struct Tile {
+  static constexpr int kLanes = LANES;
+  static constexpr int kVpl = VPL;
+  static constexpr int kGroups = kThreads / LANES;  // rows a CTA holds at once
+  static constexpr int kUnroll = kRowsInFlight / VPL;  // rows a group loads at once
+  static constexpr int kRows = kGroups * kUnroll;   // rows a CTA takes a step
+};
+
+// 8 bf16 channels (one 16-byte vector) to floats, exactly.
+__device__ __forceinline__ void unpack8(const uint4& q, float* f) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __uint_as_float(w[k] << 16);
+    f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+// 8 floats to bf16, round to nearest even, as one 16-byte vector.
+__device__ __forceinline__ uint4 pack8(const float* f) {
+  uint32_t w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
+    w[k] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// q itself, but opaque to the compiler: each pass over a step's rows
+// after the first unpacks the raw vectors again instead of keeping the
+// first pass's floats, 4 registers a vector instead of 16. Without it
+// the backward spills at 64 registers.
+__device__ __forceinline__ uint4 reread(uint4 q) {
+  asm volatile("" : "+r"(q.x), "+r"(q.y), "+r"(q.z), "+r"(q.w));
+  return q;
+}
+
+// Sum over a group of LANES lanes (a power of 2 up to 32) of a full warp.
+template <int LANES>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = LANES / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// Load row r's channels of lane into av/bv (zero past C); returns the
-// squared norms via sa/sb, reduced over the warp.
-__device__ __forceinline__ void load_row(
-    const bf16* __restrict__ a, const bf16* __restrict__ b, int64_t r, int c,
-    int lane, float* av, float* bv, float* ra, float* rb) {
-  float sa = 0.0f, sb = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) {
-    const int ch = lane + 32 * j;
-    av[j] = 0.0f;
-    bv[j] = 0.0f;
-    if (ch < c) {
-      av[j] = __bfloat162float(a[r * c + ch]);
-      bv[j] = __bfloat162float(b[r * c + ch]);
-    }
-    sa += av[j] * av[j];
-    sb += bv[j] * bv[j];
-  }
-  *ra = sqrtf(warp_sum(sa));
-  *rb = sqrtf(warp_sum(sb));
+// The unit difference a ia - b ib, with explicit roundings (as every
+// product and FMA of the gradient) so that no form of a kernel contracts
+// them differently.
+__device__ __forceinline__ float unit_diff(float a, float ia, float b, float ib) {
+  return __fmaf_rn(-b, ib, __fmul_rn(a, ia));
 }
 
-__global__ void __launch_bounds__(kThreads) lpips_head_fwd_kernel(
-    const bf16* __restrict__ a, const bf16* __restrict__ b,
-    const float* __restrict__ lin, int rows, int c,
-    float* __restrict__ partials) {
-  __shared__ float warp_part[kWarps];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float part = 0.0f;
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int64_t r = (int64_t)blockIdx.x * kRowsPerCta + warp * kRowsPerWarp + i;
-    if (r >= rows) break;
-    float av[kMaxPerLane], bv[kMaxPerLane], ra, rb;
-    load_row(a, b, r, c, lane, av, bv, &ra, &rb);
-    float d = 0.0f;
+// This lane's place: its row group, its lane in the group, and which of
+// its vectors hold channels (all of them unless C / 8 is no power of 2).
+template <class T>
+struct Lane {
+  int group, lig;
+  bool on[T::kVpl];
+
+  __device__ __forceinline__ Lane(int nvec) {
+    group = threadIdx.x / T::kLanes;
+    lig = threadIdx.x % T::kLanes;
 #pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
-      const int ch = lane + 32 * j;
-      if (ch < c) {
-        const float diff = av[j] / (ra + kEps) - bv[j] / (rb + kEps);
-        d += diff * diff * lin[ch];
+    for (int j = 0; j < T::kVpl; ++j) on[j] = vec(j) < nvec;
+  }
+  __device__ __forceinline__ int vec(int j) const { return lig + T::kLanes * j; }
+
+  // This lane's 8 weights of vector j, times `scale` (0 where it holds none).
+  __device__ __forceinline__ void weights(const float* __restrict__ lin,
+                                          float scale, float (&w)[T::kVpl][8]) const {
+#pragma unroll
+    for (int j = 0; j < T::kVpl; ++j) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) w[j][k] = on[j] ? lin[8 * vec(j) + k] * scale : 0.0f;
+    }
+  }
+
+  // The vectors of rows base + u kGroups + group, u < kUnroll, of x and y:
+  // every load started before any is used; zeros past hi.
+  __device__ __forceinline__ void load(const uint4* __restrict__ x,
+                                       const uint4* __restrict__ y, int64_t base,
+                                       int hi, int nvec,
+                                       uint4 (&qx)[T::kUnroll][T::kVpl],
+                                       uint4 (&qy)[T::kUnroll][T::kVpl]) const {
+#pragma unroll
+    for (int u = 0; u < T::kUnroll; ++u) {
+      const int64_t r = base + u * T::kGroups + group;
+#pragma unroll
+      for (int j = 0; j < T::kVpl; ++j) {
+        qx[u][j] = qy[u][j] = make_uint4(0u, 0u, 0u, 0u);
+        if (r < hi && on[j]) {
+          const int64_t e = r * nvec + vec(j);
+          qx[u][j] = __ldg(x + e);
+          qy[u][j] = __ldg(y + e);
+        }
       }
     }
-    part += warp_sum(d);
   }
-  if (lane == 0) warp_part[warp] = part;
+};
+
+// Squared norms of the kUnroll rows of qa and qb, summed over the group.
+template <class T>
+__device__ __forceinline__ void row_norms(const uint4 (&qa)[T::kUnroll][T::kVpl],
+                                          const uint4 (&qb)[T::kUnroll][T::kVpl],
+                                          float (&ra)[T::kUnroll],
+                                          float (&rb)[T::kUnroll]) {
+#pragma unroll
+  for (int u = 0; u < T::kUnroll; ++u) {
+    float sa = 0.0f, sb = 0.0f;
+#pragma unroll
+    for (int j = 0; j < T::kVpl; ++j) {
+      float fa[8], fb[8];
+      unpack8(qa[u][j], fa);
+      unpack8(qb[u][j], fb);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        sa = __fmaf_rn(fa[k], fa[k], sa);
+        sb = __fmaf_rn(fb[k], fb[k], sb);
+      }
+    }
+    ra[u] = sa;
+    rb[u] = sb;
+  }
+#pragma unroll
+  for (int u = 0; u < T::kUnroll; ++u) {
+    ra[u] = sqrtf(group_sum<T::kLanes>(ra[u]));
+    rb[u] = sqrtf(group_sum<T::kLanes>(rb[u]));
+  }
+}
+
+int grid_size(int rows_per_step, int span, int ctas_per_sm, int sm_count) {
+  const int steps = (span + rows_per_step - 1) / rows_per_step;
+  return steps < ctas_per_sm * sm_count ? steps : ctas_per_sm * sm_count;
+}
+
+template <class T>
+__global__ void __launch_bounds__(kThreads, kFwdCtasPerSm) lpips_head_fwd_kernel(
+    const uint4* __restrict__ a, const uint4* __restrict__ b,
+    const float* __restrict__ lin, int lo, int hi, int nvec,
+    unsigned int* __restrict__ ticket, float* __restrict__ partials,
+    float* __restrict__ out) {
+  constexpr int U = T::kUnroll, V = T::kVpl;
+  const Lane<T> lane(nvec);
+  float w[V][8];
+  lane.weights(lin, 1.0f, w);
+  float acc = 0.0f;
+  for (int64_t base = lo + (int64_t)blockIdx.x * T::kRows; base < hi;
+       base += (int64_t)gridDim.x * T::kRows) {
+    uint4 qa[U][V], qb[U][V];
+    lane.load(a, b, base, hi, nvec, qa, qb);
+    float ra[U], rb[U];
+    row_norms<T>(qa, qb, ra, rb);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float ia = 1.0f / (ra[u] + kEps), ib = 1.0f / (rb[u] + kEps);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        float fa[8], fb[8];
+        unpack8(reread(qa[u][j]), fa);
+        unpack8(reread(qb[u][j]), fb);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float d = unit_diff(fa[k], ia, fb[k], ib);
+          acc = __fmaf_rn(__fmul_rn(d, d), w[j][k], acc);
+        }
+      }
+    }
+  }
+
+  __shared__ float warp_part[kWarps];
+  __shared__ bool last;
+  const int warp = threadIdx.x / 32;
+  acc = group_sum<32>(acc);
+  if (threadIdx.x % 32 == 0) warp_part[warp] = acc;
   __syncthreads();
   if (threadIdx.x == 0) {
     float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += warp_part[w];
+    for (int i = 0; i < kWarps; ++i) s += warp_part[i];
     partials[blockIdx.x] = s;
+    __threadfence();  // the partial is visible before the ticket is taken
+    last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float s = 0.0f;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += kThreads) s += __ldcg(partials + i);
+  s = group_sum<32>(s);
+  if (threadIdx.x % 32 == 0) warp_part[warp] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.0f;
+    for (int i = 0; i < kWarps; ++i) t += warp_part[i];
+    *out = t;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) lpips_head_bwd_kernel(
-    const bf16* __restrict__ a, const bf16* __restrict__ b,
+template <class T>
+__global__ void __launch_bounds__(kThreads, kBwdCtasPerSm) lpips_head_bwd_kernel(
+    const uint4* __restrict__ a, const uint4* __restrict__ b,
     const float* __restrict__ lin, const float* __restrict__ ct, int rows,
-    int c, bf16* __restrict__ da, bf16* __restrict__ db) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const float cot = *ct;
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int64_t r = (int64_t)blockIdx.x * kRowsPerCta + warp * kRowsPerWarp + i;
-    if (r >= rows) break;
-    float av[kMaxPerLane], bv[kMaxPerLane], ra, rb;
-    load_row(a, b, r, c, lane, av, bv, &ra, &rb);
-    float g[kMaxPerLane];
-    float dot_a = 0.0f, dot_b = 0.0f;
+    int lo, int hi, int nvec, uint4* __restrict__ da, uint4* __restrict__ db) {
+  constexpr int U = T::kUnroll, V = T::kVpl;
+  const bool with_db = db != nullptr;
+  // the rows outside the span: zeros, not read
+  const int64_t lead = (int64_t)lo * nvec;
+  const int64_t outside = lead + (int64_t)(rows - hi) * nvec;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < outside;
+       i += (int64_t)gridDim.x * kThreads) {
+    const int64_t e = i < lead ? i : i - lead + (int64_t)hi * nvec;
+    da[e] = make_uint4(0u, 0u, 0u, 0u);
+    if (with_db) db[e] = make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  const Lane<T> lane(nvec);
+  float w2[V][8];  // 2 (lin ct), as the plain version rounds it
+  lane.weights(lin, *ct, w2);
 #pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
-      const int ch = lane + 32 * j;
-      g[j] = 0.0f;
-      if (ch < c) {
-        const float lin_scaled = lin[ch] * cot;
-        g[j] = 2.0f * lin_scaled * (av[j] / (ra + kEps) - bv[j] / (rb + kEps));
+  for (int j = 0; j < V; ++j) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) w2[j][k] *= 2.0f;
+  }
+  for (int64_t base = lo + (int64_t)blockIdx.x * T::kRows; base < hi;
+       base += (int64_t)gridDim.x * T::kRows) {
+    uint4 qa[U][V], qb[U][V];
+    lane.load(a, b, base, hi, nvec, qa, qb);
+    float ra[U], rb[U], ia[U], ib[U], dot_a[U], dot_b[U];
+    row_norms<T>(qa, qb, ra, rb);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      ia[u] = 1.0f / (ra[u] + kEps);
+      ib[u] = 1.0f / (rb[u] + kEps);
+      dot_a[u] = dot_b[u] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        float fa[8], fb[8];
+        unpack8(reread(qa[u][j]), fa);
+        unpack8(reread(qb[u][j]), fb);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float g = __fmul_rn(w2[j][k], unit_diff(fa[k], ia[u], fb[k], ib[u]));
+          dot_a[u] = __fmaf_rn(fa[k], g, dot_a[u]);
+          if (with_db) dot_b[u] = __fmaf_rn(fb[k], g, dot_b[u]);
+        }
       }
-      dot_a += av[j] * g[j];
-      dot_b += bv[j] * g[j];
     }
-    dot_a = warp_sum(dot_a);
-    dot_b = warp_sum(dot_b);
-    const float ea = ra + kEps, eb = rb + kEps;
-    const float ka = dot_a / ((ra > 0.0f ? ra : 1.0f) * (ea * ea));
-    const float kb = dot_b / ((rb > 0.0f ? rb : 1.0f) * (eb * eb));
 #pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
-      const int ch = lane + 32 * j;
-      if (ch < c) {
-        da[r * c + ch] = __float2bfloat16(g[j] / ea - av[j] * ka);
-        db[r * c + ch] = __float2bfloat16(-(g[j] / eb - bv[j] * kb));
+    for (int u = 0; u < U; ++u) dot_a[u] = group_sum<T::kLanes>(dot_a[u]);
+    if (with_db) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) dot_b[u] = group_sum<T::kLanes>(dot_b[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t r = base + u * T::kGroups + lane.group;
+      const float ea = ra[u] + kEps, eb = rb[u] + kEps;
+      const float ka = dot_a[u] / ((ra[u] > 0.0f ? ra[u] : 1.0f) * (ea * ea));
+      const float kb = dot_b[u] / ((rb[u] > 0.0f ? rb[u] : 1.0f) * (eb * eb));
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        if (r >= hi || !lane.on[j]) continue;
+        const int64_t e = r * nvec + lane.vec(j);
+        float fa[8], fb[8], g[8], out[8];
+        unpack8(reread(qa[u][j]), fa);
+        unpack8(reread(qb[u][j]), fb);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          g[k] = __fmul_rn(w2[j][k], unit_diff(fa[k], ia[u], fb[k], ib[u]));
+          out[k] = __fmaf_rn(-fa[k], ka, __fmul_rn(g[k], ia[u]));
+        }
+        da[e] = pack8(out);
+        if (with_db) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) out[k] = __fmaf_rn(fb[k], kb, -__fmul_rn(g[k], ib[u]));
+          db[e] = pack8(out);
+        }
       }
     }
   }
 }
 
-int num_ctas(int rows) { return (rows + kRowsPerCta - 1) / kRowsPerCta; }
+// Calls f(Tile<LANES, VPL>()) for the instance that fits nvec vectors a
+// row: every C that is a multiple of 8 up to kMaxC.
+template <class F>
+int with_tile(int nvec, F f) {
+  if (nvec <= 1) return f(Tile<1, 1>());
+  if (nvec <= 2) return f(Tile<2, 1>());
+  if (nvec <= 4) return f(Tile<4, 1>());
+  if (nvec <= 8) return f(Tile<8, 1>());
+  if (nvec <= 16) return f(Tile<16, 1>());
+  if (nvec <= 32) return f(Tile<32, 1>());
+  return f(Tile<32, 2>());
+}
+
+bool valid(int rows, int c, int lo, int hi, int sm_count) {
+  return c > 0 && c % 8 == 0 && c <= kMaxC && 0 <= lo && lo < hi &&
+         hi <= rows && sm_count > 0;
+}
 
 }  // namespace
 
 extern "C" {
 
-// The number of partial sums lpips_head_fwd writes for `rows` rows.
-int lpips_head_partials(int rows) { return num_ctas(rows); }
+// The forward's workspace for `sm_count` SMs, in 4-byte words: the ticket
+// counter (0 when allocated) and a partial per CTA.
+int lpips_head_workspace_words(int sm_count) { return 1 + kFwdCtasPerSm * sm_count; }
 
+// Forward over rows [lo, hi) of a, b ([rows, c] bf16, 16-byte aligned):
+// the fp32 scalar into *out.
 int lpips_head_fwd(const void* a, const void* b, const float* lin, int rows,
-                   int c, float* partials, void* stream) {
-  if (c <= 0 || c > 32 * kMaxPerLane || rows <= 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  lpips_head_fwd_kernel<<<num_ctas(rows), kThreads, 0,
-                          (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(b), lin, rows, c,
-      partials);
-  return (int)cudaGetLastError();
+                   int c, int lo, int hi, int sm_count, void* workspace,
+                   float* out, void* stream) {
+  if (!valid(rows, c, lo, hi, sm_count)) return (int)cudaErrorInvalidValue;
+  const int nvec = c / 8;
+  return with_tile(nvec, [&](auto tile) {
+    using T = decltype(tile);
+    unsigned int* ticket = static_cast<unsigned int*>(workspace);
+    const int grid = grid_size(T::kRows, hi - lo, kFwdCtasPerSm, sm_count);
+    lpips_head_fwd_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const uint4*>(a), static_cast<const uint4*>(b), lin, lo,
+        hi, nvec, ticket, reinterpret_cast<float*>(ticket + 1), out);
+    return (int)cudaGetLastError();
+  });
 }
 
+// Backward: da (and db unless it is null), [rows, c] bf16, from rows
+// [lo, hi) of a, b and the fp32 cotangent *ct; zeros outside [lo, hi).
 int lpips_head_bwd(const void* a, const void* b, const float* lin,
-                   const float* ct, int rows, int c, void* da, void* db,
-                   void* stream) {
-  if (c <= 0 || c > 32 * kMaxPerLane || rows <= 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  lpips_head_bwd_kernel<<<num_ctas(rows), kThreads, 0,
-                          (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(b), lin, ct, rows,
-      c, static_cast<bf16*>(da), static_cast<bf16*>(db));
-  return (int)cudaGetLastError();
+                   const float* ct, int rows, int c, int lo, int hi,
+                   int sm_count, void* da, void* db, void* stream) {
+  if (!valid(rows, c, lo, hi, sm_count)) return (int)cudaErrorInvalidValue;
+  const int nvec = c / 8;
+  return with_tile(nvec, [&](auto tile) {
+    using T = decltype(tile);
+    const int grid = grid_size(T::kRows, hi - lo, kBwdCtasPerSm, sm_count);
+    lpips_head_bwd_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const uint4*>(a), static_cast<const uint4*>(b), lin, ct,
+        rows, lo, hi, nvec, static_cast<uint4*>(da), static_cast<uint4*>(db));
+    return (int)cudaGetLastError();
+  });
 }
 
 const char* lpips_head_error_string(int code) {

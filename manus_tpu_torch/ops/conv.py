@@ -23,8 +23,9 @@ the plain version for a CPU tensor:
     gradient masked by y > 0 on load, convolved with the flipped,
     channel-transposed weights;
   * `head_fwd` / `head_bwd`: the LPIPS head of one stage,
-    sum((a/(|a|+eps) - b/(|b|+eps))^2 * lin_eff) over rows, and its
-    closed-form gradient.
+    sum((a/(|a|+eps) - b/(|b|+eps))^2 * lin_eff) over the rows of the
+    layout's pixel span, and its closed-form gradient (da alone where the
+    second features need none).
 
 `conv3x3_layout` and `head_stage_layout` are the autograd functions over
 them (LPIPS weights are frozen: the only gradient is the input's), and
@@ -278,10 +279,22 @@ def conv3x3_layout_plan_torch(xl, w, b, relu: bool, L: StageLayout,
     return torch.where(keep[:, None], y, 0.0).to(torch.bfloat16)
 
 
-def head_fwd_torch(a, b, lin_eff):
-    """Plain version of the head forward: the fp32 sum over rows and
-    channels of (unit(a) - unit(b))^2 * lin_eff."""
-    a, b = a.float(), b.float()
+def head_span(rows: int, L: StageLayout = None) -> tuple:
+    """The [lo, hi) rows of a head's input that may hold a pixel: on L's
+    layout [m_blk, m_blk + n_valid), without a layout every row."""
+    if L is None:
+        return 0, rows
+    if L.rows != rows:
+        raise ValueError(f"head features have {rows} rows, {L} has {L.rows}")
+    return L.m_blk, L.m_blk + L.n_valid
+
+
+def head_fwd_torch(a, b, lin_eff, L: StageLayout = None):
+    """Plain version of the head forward: the fp32 sum over the rows of
+    head_span(rows, L) and the channels of (unit(a) - unit(b))^2 * lin_eff.
+    The rows outside the span are zero in a and b and would add nothing."""
+    lo, hi = head_span(a.shape[0], L)
+    a, b = a[lo:hi].float(), b[lo:hi].float()
     na = a / (torch.sqrt((a * a).sum(1, keepdim=True)) + HEAD_EPS)
     nb = b / (torch.sqrt((b * b).sum(1, keepdim=True)) + HEAD_EPS)
     return ((na - nb) ** 2 * lin_eff).sum()
@@ -294,15 +307,24 @@ def _d_normed(x, r, g):
     return g / (r + HEAD_EPS) - x * (dot / (safe_r * (r + HEAD_EPS) ** 2))
 
 
-def head_bwd_torch(a, b, lin_scaled):
+def head_bwd_torch(a, b, lin_scaled, L: StageLayout = None,
+                   need_db: bool = True):
     """Plain version of the head backward: (da, db) in the dtypes of a
-    and b, for lin_scaled = lin_eff * cotangent."""
-    af, bf = a.float(), b.float()
+    and b, for lin_scaled = lin_eff * cotangent; zero outside
+    head_span(rows, L); db is None unless need_db."""
+    rows = a.shape[0]
+    lo, hi = head_span(rows, L)
+    af, bf = a[lo:hi].float(), b[lo:hi].float()
     ra = torch.sqrt((af * af).sum(1, keepdim=True))
     rb = torch.sqrt((bf * bf).sum(1, keepdim=True))
     g = 2.0 * lin_scaled * (af / (ra + HEAD_EPS) - bf / (rb + HEAD_EPS))
-    return (_d_normed(af, ra, g).to(a.dtype),
-            (-_d_normed(bf, rb, g)).to(b.dtype))
+
+    def full(x, dtype):  # the span's rows into zero rows outside it
+        return F.pad(x.to(dtype), (0, 0, lo, rows - hi))
+
+    da = full(_d_normed(af, ra, g), a.dtype)
+    db = full(-_d_normed(bf, rb, g), b.dtype) if need_db else None
+    return da, db
 
 
 # ---------------------------------------------------------------------------
@@ -404,12 +426,16 @@ _CONV_SIGNATURES = {
     "conv3x3_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 _HEAD_SIGNATURES = {
-    "lpips_head_fwd": ([_P, _P, _P, _I32, _I32, _P, _P], ctypes.c_int),
-    "lpips_head_bwd": ([_P, _P, _P, _P, _I32, _I32, _P, _P, _P],
-                       ctypes.c_int),
-    "lpips_head_partials": ([_I32], ctypes.c_int),
+    "lpips_head_fwd": ([_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P, _P,
+                        _P], ctypes.c_int),
+    "lpips_head_bwd": ([_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P,
+                        _P, _P], ctypes.c_int),
+    "lpips_head_workspace_words": ([_I32], ctypes.c_int),
     "lpips_head_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
+# The widest head the kernels take; C must also be a multiple of 8 (a row
+# is read as 16-byte vectors).
+HEAD_MAX_C = 512
 
 
 def _check(x, name, dtype, shape, device):
@@ -483,15 +509,30 @@ def _head_library():
     return cuda_build.load("lpips_head", _HEAD_SIGNATURES)
 
 
-def _check_head(a, b, lin):
+# The head forward's workspace on each device: its CTAs' ticket counter
+# (which the kernel leaves at 0) and partial sums.
+_head_workspaces: dict = {}
+
+
+def _head_workspace(lib, dev):
+    ws = _head_workspaces.get(dev)
+    if ws is None:
+        ws = _head_workspaces[dev] = torch.zeros(
+            lib.lpips_head_workspace_words(SM_COUNT), dtype=torch.int32,
+            device=dev)
+    return ws
+
+
+def _check_head(a, b, lin, L):
     if not a.is_cuda:
         raise ValueError("the CUDA LPIPS head needs CUDA feature tensors")
-    if a.dim() != 2 or a.shape[1] > 512:
-        raise ValueError(f"head features must be [rows, C <= 512], got "
-                         f"{tuple(a.shape)}")
+    if a.dim() != 2 or a.shape[1] % 8 or not 0 < a.shape[1] <= HEAD_MAX_C:
+        raise ValueError(f"head features must be [rows, C], C a multiple of "
+                         f"8 up to {HEAD_MAX_C}, got {tuple(a.shape)}")
     _check(a, "a", torch.bfloat16, tuple(a.shape), a.device)
     _check(b, "b", torch.bfloat16, tuple(a.shape), a.device)
     _check(lin, "lin_eff", torch.float32, (a.shape[1],), a.device)
+    return head_span(a.shape[0], L)
 
 
 def _head_raise(lib, rc, what):
@@ -500,36 +541,41 @@ def _head_raise(lib, rc, what):
                            f"{lib.lpips_head_error_string(rc).decode()} ({rc})")
 
 
-def head_fwd_cuda(a, b, lin_eff):
-    """Launch the head forward kernel: a, b [rows, C] bf16, lin_eff [C]
-    fp32 -> fp32 scalar. The kernel writes one partial sum per row block;
-    their sum is taken here, in a fixed order (no float atomics)."""
-    _check_head(a, b, lin_eff)
+def head_fwd_cuda(a, b, lin_eff, L: StageLayout = None):
+    """Launch the head forward kernel over the rows of head_span(rows, L):
+    a, b [rows, C] bf16, lin_eff [C] fp32 -> fp32 scalar, summed on the
+    card in a fixed order (no float atomics) by the same launch."""
+    lo, hi = _check_head(a, b, lin_eff, L)
     lib = _head_library()
     rows, c = a.shape
-    partials = torch.empty(lib.lpips_head_partials(rows),
-                           dtype=torch.float32, device=a.device)
+    out = torch.empty((), dtype=torch.float32, device=a.device)
     rc = lib.lpips_head_fwd(a.data_ptr(), b.data_ptr(), lin_eff.data_ptr(),
-                            rows, c, partials.data_ptr(),
+                            rows, c, lo, hi, SM_COUNT,
+                            _head_workspace(lib, a.device).data_ptr(),
+                            out.data_ptr(),
                             torch.cuda.current_stream(a.device).cuda_stream)
     _head_raise(lib, rc, "lpips_head_fwd")
     head_fwd_cuda.launches += 1
-    return partials.sum()
+    return out
 
 
 head_fwd_cuda.launches = 0
 
 
-def head_bwd_cuda(a, b, lin_eff, ct):
+def head_bwd_cuda(a, b, lin_eff, ct, L: StageLayout = None,
+                  need_db: bool = True):
     """Launch the head backward kernel: (da, db) [rows, C] bf16 for the
-    fp32 scalar cotangent ct (read on the card)."""
-    _check_head(a, b, lin_eff)
+    fp32 scalar cotangent ct (read on the card), zero outside
+    head_span(rows, L); db is None, and not computed, unless need_db."""
+    lo, hi = _check_head(a, b, lin_eff, L)
     _check(ct, "cotangent", torch.float32, (), a.device)
     lib = _head_library()
-    da, db = torch.empty_like(a), torch.empty_like(b)
+    rows, c = a.shape
+    da = torch.empty_like(a)
+    db = torch.empty_like(b) if need_db else None
     rc = lib.lpips_head_bwd(a.data_ptr(), b.data_ptr(), lin_eff.data_ptr(),
-                            ct.data_ptr(), a.shape[0], a.shape[1],
-                            da.data_ptr(), db.data_ptr(),
+                            ct.data_ptr(), rows, c, lo, hi, SM_COUNT,
+                            da.data_ptr(), None if db is None else db.data_ptr(),
                             torch.cuda.current_stream(a.device).cuda_stream)
     _head_raise(lib, rc, "lpips_head_bwd")
     head_bwd_cuda.launches += 1
@@ -590,33 +636,37 @@ def conv3x3_layout(xl, p: ConvWeights, relu: bool, L: StageLayout):
 
 class HeadStageFn(torch.autograd.Function):
     """One LPIPS head stage over [rows, C] features, with its closed-form
-    backward (lin_eff is frozen: no gradient)."""
+    backward (lin_eff is frozen: no gradient; db only where b needs one)."""
 
     @staticmethod
-    def forward(ctx, a, b, lin_eff):
+    def forward(ctx, a, b, lin_eff, L):
         ctx.save_for_backward(a, b, lin_eff)
+        ctx.L = L
         if a.is_cuda:
-            return head_fwd_cuda(a, b, lin_eff)
-        return head_fwd_torch(a, b, lin_eff)
+            return head_fwd_cuda(a, b, lin_eff, L)
+        return head_fwd_torch(a, b, lin_eff, L)
 
     @staticmethod
     def backward(ctx, ct):
         a, b, lin_eff = ctx.saved_tensors
+        need_db = ctx.needs_input_grad[1]
         ct = ct.to(torch.float32).contiguous()
         if a.is_cuda:
-            da, db = head_bwd_cuda(a, b, lin_eff, ct)
+            da, db = head_bwd_cuda(a, b, lin_eff, ct, ctx.L, need_db)
         else:
-            da, db = head_bwd_torch(a, b, lin_eff * ct)
-        return da, db, None
+            da, db = head_bwd_torch(a, b, lin_eff * ct, ctx.L, need_db)
+        return da, db, None, None
 
 
-def head_stage_layout(a, b, lin_eff):
+def head_stage_layout(a, b, lin_eff, L: StageLayout = None):
     """sum((unit(a) - unit(b))^2 * lin_eff) over [rows, C] feature pairs
     (layout arrays or any row-major features). The caller folds the
     spatial 1/(H*W) into lin_eff; channels beyond the real ones must be
-    zero in a and b, and rows that hold no pixel are zero in both, so they
-    add nothing."""
-    return HeadStageFn.apply(a, b, lin_eff)
+    zero in a and b. With the stage's layout L only its pixel span
+    [L.m_blk, L.m_blk + L.n_valid) is read: the rows outside it are zero
+    in both (the conv chain zero-fills them) and add nothing, and their
+    gradient is zero. Without L every row is read."""
+    return HeadStageFn.apply(a, b, lin_eff, L)
 
 
 # ---------------------------------------------------------------------------

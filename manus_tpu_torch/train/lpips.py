@@ -224,13 +224,14 @@ def vgg16_features(params, x) -> list:
 
 
 def _lpips_head_layout(params, f1: list, f2: list):
-    """The head over layout-form stage features: rows that hold no pixel
-    are zero in both and add nothing; the mean over the h*w pixels is
-    folded into lin (the head is linear in lin)."""
+    """The head over layout-form stage features: only each stage's pixel
+    span is read (the rows outside it are zero in both and add nothing);
+    the mean over the h*w pixels is folded into lin (the head is linear in
+    lin)."""
     packed = pack_lpips_params(params)
     total = None
     for k, ((a, L), (b, _)) in enumerate(zip(f1, f2)):
-        d = head_stage_layout(a, b, packed.lin_eff(k, L))
+        d = head_stage_layout(a, b, packed.lin_eff(k, L), L)
         total = d if total is None else total + d
     return total
 

@@ -304,11 +304,20 @@ def test_cuda_conv_autograd_and_image_conv(dev):
         _assert_bf16_close(gx.cpu(), gc, "image conv dx")
 
 
-@pytest.mark.parametrize("rows,c", [(4112 * 3, 64), (528, 512), (40, 16)])
+# (rows, c): row counts that are no multiple of a CTA's step of rows
+# (C / 8 lanes a row, 4 rows a lane group; 2 at C = 512), a C whose
+# lane group has an idle lane (24), and grids of more steps than CTAs, so
+# that a CTA walks several (70001 x 64, 9000 x 512).
+HEAD_CASES = [(4112 * 3, 64), (528, 512), (40, 16), (1000, 128), (777, 256),
+              (100, 24), (70001, 64), (9000, 512)]
+
+
+@pytest.mark.parametrize("rows,c", HEAD_CASES)
 def test_cuda_head_matches_plain(dev, rows, c):
-    """The head kernels with all-zero rows (the zero-norm guard): the
-    forward within 1e-5 relative (fp32 sums in another order), the
-    gradients by the bf16 rule."""
+    """The head kernels over every row, with all-zero rows (the zero-norm
+    guard): the forward within 1e-5 relative (fp32 sums in another
+    order), the gradients by the bf16 rule; two launches give equal bits,
+    and the da-only form's da equals the two-output form's."""
     from manus_tpu_torch.ops import conv
 
     g = torch.Generator(device="cpu").manual_seed(rows + c)
@@ -328,6 +337,71 @@ def test_cuda_head_matches_plain(dev, rows, c):
     _assert_bf16_close(da, da_ref, "da")
     _assert_bf16_close(db, db_ref, "db")
     assert not da[::7].any() and not db[::7].any()
+    da2, db2 = conv.head_bwd_cuda(a, b, lin, ct)
+    assert torch.equal(da, da2) and torch.equal(db, db2)
+    da_only, none = conv.head_bwd_cuda(a, b, lin, ct, need_db=False)
+    assert none is None and torch.equal(da_only, da)
+
+
+# (h, w, c): one layout per C the kernels are built for (16, and the
+# VGG16 stages' 64 to 512), whose pixel span [m_blk, m_blk + n_valid)
+# starts past row 0 and ends inside a CTA's step of rows.
+HEAD_SPAN_CASES = [(13, 9, 16), (45, 45, 64), (20, 12, 128), (15, 16, 256),
+                   (7, 4, 512)]
+
+
+@pytest.mark.parametrize("h,w,c", HEAD_SPAN_CASES)
+def test_cuda_head_reads_only_the_pixel_span(dev, h, w, c):
+    """With the stage's layout the kernels read only its pixel span: the
+    rows outside it hold NaN here, yet the forward is finite and the
+    backward writes zeros there. Pixel rows that are zero in both (the
+    guard) stay zero. Against the plain version over the span; the
+    da-only form's da equals the two-output form's; two launches, and two
+    replays of a CUDA graph of the forward (the ticket's reset), give
+    equal bits."""
+    from manus_tpu_torch.ops import conv
+
+    L = conv.StageLayout(h, w, max(c, 128))
+    lo, hi = L.m_blk, L.m_blk + L.n_valid
+    g = torch.Generator(device="cpu").manual_seed(h * w + c)
+    valid = conv.valid_rows(L, "cpu")
+    a = torch.randn(L.rows, c, generator=g) * valid[:, None]
+    b = torch.randn(L.rows, c, generator=g) * valid[:, None]
+    a[lo: lo + 3 * (w + 2)] = 0
+    b[lo: lo + 3 * (w + 2)] = 0
+    for x in (a, b):
+        x[:lo] = x[hi:] = float("nan")
+    a, b = a.to(dev, torch.bfloat16), b.to(dev, torch.bfloat16)
+    lin = (torch.rand(c, generator=g) / c / (h * w)).to(dev)
+    got = conv.head_fwd_cuda(a, b, lin, L)
+    want = conv.head_fwd_torch(a, b, lin, L).item()
+    assert abs(got.item() - want) <= 1e-5 * abs(want) and want > 0
+    assert torch.equal(conv.head_fwd_cuda(a, b, lin, L), got)
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = conv.head_fwd_cuda(a, b, lin, L)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays.append(out.clone())
+    assert torch.equal(replays[0], got) and torch.equal(replays[1], got)
+
+    ct = torch.tensor(0.7, device=dev)
+    da, db = conv.head_bwd_cuda(a, b, lin, ct, L)
+    da_ref, db_ref = conv.head_bwd_torch(a, b, lin * ct, L)
+    _assert_bf16_close(da, da_ref, "da")
+    _assert_bf16_close(db, db_ref, "db")
+    outside = torch.ones(L.rows, dtype=torch.bool)
+    outside[lo:hi] = False
+    for x in (da, db):
+        assert not x[outside.to(dev)].any()
+        assert not x[lo: lo + 3 * (w + 2)].any()
+        assert x.isfinite().all()
+    da2, db2 = conv.head_bwd_cuda(a, b, lin, ct, L)
+    assert torch.equal(da, da2) and torch.equal(db, db2)
+    da_only, none = conv.head_bwd_cuda(a, b, lin, ct, L, need_db=False)
+    assert none is None and torch.equal(da_only, da)
 
 
 def test_cuda_lpips_distance_matches_cpu(dev):
@@ -370,3 +444,15 @@ def test_lpips_wrappers_check_inputs(dev):
     a = torch.zeros(8, 600, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="512"):
         conv.head_fwd_cuda(a, a, torch.zeros(600, device=dev))
+    a = torch.zeros(8, 20, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        conv.head_fwd_cuda(a, a, torch.zeros(20, device=dev))
+    buf = torch.zeros(8 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    a, lin = buf[1:].view(8, 64), torch.zeros(64, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        conv.head_fwd_cuda(a, a, lin)
+    with pytest.raises(ValueError, match="aligned"):
+        conv.head_bwd_cuda(a, a, lin, torch.ones((), device=dev))
+    a = torch.zeros(L.rows - 1, 64, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="rows"):
+        conv.head_fwd_cuda(a, a, lin, L)

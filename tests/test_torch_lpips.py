@@ -190,6 +190,76 @@ def test_head_stage_matches_jax(rows, c):
     _assert_bf16_close(db, want_db, "db")
 
 
+# (h, w, c): head stages on real layouts: 64 channels, which the JAX
+# layout carries in 128 lanes, and 512 at a stage of one row block.
+HEAD_STAGES = [(32, 32, 64), (8, 8, 512)]
+HEAD_STAGE_IDS = ["32x32x64", "8x8x512"]
+
+
+def _head_layout_case(h, w, c):
+    """Stage features of both packages' build_layout (border rows zero),
+    with a pixel that is zero in both and one zero in b only, the head's
+    lin_eff, and the port's StageLayout."""
+    rng = np.random.RandomState(h * w + c)
+    x1 = rng.normal(0, 1, (h, w, c)).astype(np.float32)
+    x2 = rng.normal(0, 1, (h, w, c)).astype(np.float32)
+    x1[0, 0] = x2[0, 0] = 0
+    x2[1, 2] = 0
+    lin = (rng.uniform(0, 1, (c,)) / c / (h * w)).astype(np.float32)
+    jl = jconv.StageLayout(h, w, max(c, 128))
+    tl = tconv.StageLayout(h, w, max(c, 128))
+    ja, jb = (jconv.build_layout(jnp.asarray(x), jl) for x in (x1, x2))
+    ta, tb = (tconv.build_layout(torch.tensor(x), tl) for x in (x1, x2))
+    np.testing.assert_array_equal(_np(ta), _np(ja)[:, :c])
+    return ja, jb, ta, tb, lin, tl
+
+
+@pytest.mark.parametrize("need_db", [True, False], ids=["da_db", "da_only"])
+@pytest.mark.parametrize("h,w,c", HEAD_STAGES, ids=HEAD_STAGE_IDS)
+def test_head_stage_span_matches_jax(h, w, c, need_db):
+    """head_stage_layout over the layout's pixel span (the train step's
+    form: with L, and da alone where b is detached) against the JAX head
+    over every row of its layout. Tolerances as in
+    test_head_stage_matches_jax."""
+    ja, jb, ta, tb, lin, L = _head_layout_case(h, w, c)
+    jlin = jnp.zeros((1, ja.shape[1]), jnp.float32).at[0, :c].set(lin)
+    ct = 1.7
+    want, vjp = jax.vjp(
+        lambda u, v: jconv.head_stage_layout(u, v, jlin, True), ja, jb)
+    want_da, want_db = vjp(jnp.asarray(ct, jnp.float32))
+
+    ta.requires_grad_(True)
+    tb.requires_grad_(need_db)
+    got = tconv.head_stage_layout(ta, tb, torch.tensor(lin), L)
+    grads = torch.autograd.grad(got * ct, [ta, tb] if need_db else [ta])
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+    _assert_bf16_close(grads[0], _np(want_da)[:, :c], "da")
+    if need_db:
+        _assert_bf16_close(grads[1], _np(want_db)[:, :c], "db")
+
+
+@pytest.mark.parametrize("h,w,c", HEAD_STAGES, ids=HEAD_STAGE_IDS)
+def test_head_plain_span_equals_every_row(h, w, c):
+    """The plain versions over the pixel span and over every row of a
+    layout whose other rows are zero: the value within 1e-6 relative (fp32
+    sums of another length), the gradients bit for bit, and the da-only
+    form's da equal to the two-output form's."""
+    _, _, a, b, lin, L = _head_layout_case(h, w, c)
+    lin = torch.tensor(lin)
+    assert L.m_blk > 0 and L.m_blk + L.n_valid < L.rows
+    np.testing.assert_allclose(tconv.head_fwd_torch(a, b, lin, L).item(),
+                               tconv.head_fwd_torch(a, b, lin).item(),
+                               rtol=1e-6)
+    lin_scaled = lin * 1.7
+    da, db = tconv.head_bwd_torch(a, b, lin_scaled)
+    da_span, db_span = tconv.head_bwd_torch(a, b, lin_scaled, L)
+    da_only, none = tconv.head_bwd_torch(a, b, lin_scaled, L, need_db=False)
+    assert none is None
+    assert torch.equal(da_span, da) and torch.equal(db_span, db)
+    assert torch.equal(da_only, da_span)
+    assert da.abs().max() > 0 and db.abs().max() > 0
+
+
 def test_maxpool2x2_layout_matches_jax_with_ties():
     """Values equal, and gradients equal under the chain's invariant (no
     cotangent on rows that hold no pixel), with ties in the windows: both
