@@ -6,7 +6,8 @@ Phases, each of which exits non-zero on failure:
 
   1. build: nvcc compiles manus_tpu_torch/csrc/*.cu (composite, conv3x3,
      lpips_head) for sm_90a into manus_tpu_torch/_build/ (one nvcc per
-     source, in parallel);
+     source, in parallel); ptxas's report of every library, read from the
+     log kept beside it (also for one built earlier), must show no spill;
   2. scene: bench.py's primary hand workload built with the port:
      65,536 gaussians at 512x512, one view, procedural_skeleton(8), point
      skin weights, random weights from fixed seeds. The ground truth is
@@ -21,7 +22,9 @@ Phases, each of which exits non-zero on failure:
      on d_payload under a random image cotangent and a non-zero
      background), two launches of each against each other (equal bits),
      the (tile, chunk) items the payload gives, the chunk size and the
-     CTAs an SM holds, and both kernels' times from CUDA-graph replays;
+     CTAs an SM holds, and both kernels' times from CUDA-graph replays
+     (at the bench shape rotating over copies of their inputs past
+     COLD_BYTES, so that every launch reads HBM, and of one input);
   5. slice: STEPS training steps through make_train_step under bench.py's
      raster configuration, without LPIPS; the loss must be finite and
      fall, and each composite kernel's launch count over the run must
@@ -31,8 +34,9 @@ Phases, each of which exits non-zero on failure:
      512x512 gt image and on the gt: each of the 13 conv layers' kernel
      against its plain version on the same input, the dx kernel under a
      random bf16 cotangent (per layer: the plan conv_plan chose, its
-     working CTAs and waves of the card's SMs, device time from a CUDA
-     graph of launches, TFLOP/s, the host time of one launch call, and,
+     working CTAs and waves of the card's SMs, device time from CUDA-graph
+     replays rotating over copies of the inputs past COLD_BYTES and of
+     one input, TFLOP/s, the host time of one launch call, and,
      for a split-K plan, that two launches give equal bits), the head
      kernels at each of the 5 stages as the step calls them (the stage
      layout's pixel span; equal bits over two launches and, for the
@@ -49,7 +53,17 @@ Phases, each of which exits non-zero on failure:
      once with lpips_features, as bench.py does); the loss must be finite
      and fall, loss/lpips_loss > 0 at every step, and the launches over
      the run must be 13 conv, 13 dx, 5 head forward and 5 head backward
-     per step, and one of each composite kernel.
+     per step, and one of each composite kernel;
+  8. flagship: bench.py's flagship leg: FLAGSHIP_CAPACITY gaussians at
+     512x512 with the skin weights sampled every step from a VOXEL_RES
+     voxel grid built on the card; STEPS steps as in 5; then densify
+     events through make_densify_step on the trained state, (a) as it
+     stands (every slot live) and (b) after a mask prune of every fourth
+     slot (at least one clone or split), each under
+     torch.cuda.set_sync_debug_mode("error") (no host sync) and held to
+     the same event on the CPU (the activity invariant, equal masks and
+     values); the opacity reset; the LoOP outlier mask over every slot,
+     held to the CPU's.
 
 The last lines are a {"kernels": [...]} JSON line, the card's name and
 power limit from nvidia-smi, and {"ok": true, "device": {...}}.
@@ -75,12 +89,16 @@ from manus_tpu_torch.data.synthetic import (
     procedural_skeleton,
     sample_gaussians_on_bones,
 )
+from manus_tpu_torch.data.voxel import make_voxel_grid
+from manus_tpu_torch.models import densify as densify_mod
 from manus_tpu_torch.models.gaussians import (
     get_features,
     get_opacity,
+    get_scaling,
     init_gaussian_model,
 )
 from manus_tpu_torch.ops import conv as conv_mod
+from manus_tpu_torch.ops import outliers
 from manus_tpu_torch.ops.rasterizer import composite
 from manus_tpu_torch.ops.rasterizer.api import (
     RasterConfig,
@@ -95,8 +113,10 @@ from manus_tpu_torch.train import lpips as lpips_mod
 from manus_tpu_torch.train.workloads import (
     forward_gaussians,
     init_train_state,
+    make_densify_step,
     make_raster_config,
     make_train_step,
+    resolve_skin_weights,
 )
 from manus_tpu_torch.utils import cuda_build
 from manus_tpu_torch.utils.camera import index_camera, stack_cameras
@@ -149,6 +169,18 @@ HEAD_FWD_FLOP, HEAD_BWD_FLOP, HEAD_BWD_DA_FLOP = 10, 22, 17
 # that every launch reads them from HBM, as the step's launches do.
 COLD_BYTES = 100e6
 LPIPS_SEED = 0
+# bench.py's flagship leg: the canonical hand configuration at 512x512
+# with the skin weights sampled every step from a 96-resolution grid.
+FLAGSHIP_CAPACITY, VOXEL_RES = 131072, 96
+# Densify events on the card against the CPU: the same float32 operations
+# on the same inputs, parameters and moments within 1e-6; a slot whose
+# activity differs must have a compared value (mean gradient, largest
+# scale, opacity) within one float32 ulp of its threshold, where the two
+# devices' exp or sigmoid may round apart. LoOP: float32 distance sums in
+# another order, probabilities within 1e-4; masks equal but where a
+# probability lies within 1e-4 of the 0.8 cut. k = 32 as outlier_mask's
+# default.
+DENSIFY_ATOL, LOOP_ATOL, LOOP_PROB, LOOP_K = 1e-6, 1e-4, 0.8, 32
 REPLACES = {
     "composite_fwd": "manus_tpu/ops/rasterizer/pallas_backend.py:105",
     "composite_bwd": "manus_tpu/ops/rasterizer/pallas_backend.py:258",
@@ -254,18 +286,29 @@ def host_us(fn, reps: int = 100) -> float:
 
 def build_scene(dev):
     """bench.py build_workload's primary leg, with the port."""
+    return hand_scene(dev, CAPACITY)[:3]
+
+
+def hand_scene(dev, capacity, voxel_res=0):
+    """bench.py build_workload with the port: capacity gaussians on
+    procedural_skeleton(8) at WIDTH x HEIGHT, the gt rendered from the
+    clean model, the model perturbed. Point skin weights (Dirichlet 0.1)
+    or, with voxel_res, bench.py's flagship leg: the skin weights sampled
+    every step from a voxel_res grid built on the card, the bone
+    transforms with the background channel's identity. Returns (cfg,
+    model, batch, grid or None)."""
     skel = procedural_skeleton(8)
     j = len(skel["bnames"])
-    per_bone = CAPACITY // (j + j // 2)
+    per_bone = capacity // (j + j // 2)
     pts, cols = sample_gaussians_on_bones(
         skel["rest_heads"], skel["rest_tails"], skel["rest_transforms"],
         per_bone, seed=0)
-    pts, cols = pts[:CAPACITY], cols[:CAPACITY]
+    pts, cols = pts[:capacity], cols[:capacity]
     skin = np.random.RandomState(0).dirichlet(
         np.ones(j) * 0.1, size=pts.shape[0]).astype(np.float32)
 
     cfg = hand_config()
-    cfg.capacity = CAPACITY
+    cfg.capacity = capacity
     cfg.dataset.width, cfg.dataset.height = WIDTH, HEIGHT
     cfg.loss = dataclasses.replace(
         cfg.loss, losses=("rgb_loss", "ssim_loss", "isotropic_reg"),
@@ -275,7 +318,21 @@ def build_scene(dev):
     cfg.raster = dataclasses.replace(
         cfg.raster, backend="cuda", tg_max=64, max_pairs_per_tile=4096,
         chunk=64, pair_budget_factor=2, multi_frac=0.25)
-    model = init_gaussian_model(pts, cols, CAPACITY, skin_weights=skin,
+    if voxel_res:  # hand_config's skin_init is "mano_init_voxel"
+        cfg.dataset.grid_res = voxel_res
+    else:
+        cfg.skin_init = "mano_init_points"
+    kp_rest = np.concatenate([skel["rest_heads"][:1], skel["rest_tails"]])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = make_voxel_grid(cfg, kp_rest, num_bones=j, device=dev)
+    if grid is not None:
+        torch.cuda.synchronize()
+        print(f"voxel grid: res {voxel_res}, weights {tuple(grid.weights.shape)}"
+              f" ({grid.weights.numel() * 4 / 2**20:.1f} MiB) built on the "
+              f"card in {time.perf_counter() - t0:.3f} s")
+        skin = None
+    model = init_gaussian_model(pts, cols, capacity, skin_weights=skin,
                                 device=dev)
 
     center = skel["rest_heads"].mean(axis=0)
@@ -286,7 +343,8 @@ def build_scene(dev):
     frame = 3 % skel["pose_transforms"].shape[0]
     bone_tf = bone_deformation_transforms(
         torch.tensor(skel["pose_transforms"][frame], device=dev),
-        torch.tensor(skel["rest_transforms"], device=dev))
+        torch.tensor(skel["rest_transforms"], device=dev),
+        append_identity=grid is not None)
     kp = np.concatenate([skel["pose_heads"][frame][:1],
                          skel["pose_tails"][frame]]).astype(np.float32)
 
@@ -295,8 +353,8 @@ def build_scene(dev):
         gts = []
         for i in range(VIEWS):
             posed, cov, tf = forward_gaussians(
-                model.params, model.active, model.skin_weights, bone_tf,
-                cfg.model)
+                model.params, model.active,
+                resolve_skin_weights(model, grid), bone_tf, cfg.model)
             out = render_gaussians(
                 posed, cov, model.params.xyz, get_features(model.params),
                 get_opacity(model.params), index_camera(cams, i),
@@ -311,7 +369,7 @@ def build_scene(dev):
         "bone_tf": bone_tf,
         "keypoints": torch.tensor(kp, device=dev),
     }
-    return cfg, perturb_model(model), batch
+    return cfg, perturb_model(model), batch, grid
 
 
 def spread_projection(proj, seed=0):
@@ -404,6 +462,31 @@ def composite_graph_ms(pay, bins, dev, reps=20):
                 deepest_tile=int(cnts.max()))
 
 
+def composite_cold_ms(pay, bins, dev, reps=20):
+    """Device ms per launch of the composite forward and backward from
+    CUDA-graph replays rotating over copies of the payload, the
+    cotangents and the forward's saved state, whose bytes exceed
+    COLD_BYTES: every launch reads them from HBM, as the step's do."""
+    ntx, nty = WIDTH // TILE, HEIGHT // TILE
+    offs, cnts = bins.tile_offsets, bins.tile_counts
+    n_px = ntx * nty * 256
+    gen = torch.Generator(device=dev).manual_seed(0)
+    copies = []
+    for _ in range(int(COLD_BYTES // (4 * (pay.numel() + 4 * n_px))) + 1):
+        p = pay.clone()
+        copies.append((p, torch.rand(ntx * nty, 3, 256, device=dev,
+                                     generator=gen),
+                       torch.rand(ntx * nty, 256, device=dev, generator=gen),
+                       composite.composite_fwd_cuda(p, offs, cnts, ntx,
+                                                    nty)[1:]))
+    fwd_ms = rotated_graph_ms(lambda p, *_: composite.composite_fwd_cuda(
+        p, offs, cnts, ntx, nty), copies, reps)
+    bwd_ms = rotated_graph_ms(
+        lambda p, d_rgb, d_tf, saved: composite.composite_bwd_cuda(
+            p, offs, cnts, ntx, nty, d_rgb, d_tf, *saved), copies, reps)
+    return fwd_ms, bwd_ms, len(copies)
+
+
 def composite_check(pay, bins, dev, tag):
     """Both composite kernels against their plain version on one payload,
     and two launches of each against each other (equal bits). Returns the
@@ -487,7 +570,7 @@ def kernel_phase(pay, bins, spread_pay, spread_bins, dev):
     walk_max = n_walk.amax(1).long()
     pairs = int(walk_max.sum())
     times = composite_graph_ms(pay, bins, dev)
-    fwd_ms, bwd_ms = times["fwd_ms"], times["bwd_ms"]
+    fwd_ms, bwd_ms, n_copies = composite_cold_ms(pay, bins, dev)
     with torch.no_grad():
         fwd_plain_ms = cuda_ms(lambda: composite.composite_tiles_torch(
             pay, offs, cnts, ntx, nty), 3)
@@ -503,10 +586,13 @@ def kernel_phase(pay, bins, spread_pay, spread_bins, dev):
 
     fwd_bound, fwd_by = bound(fwd_bytes, FWD_FLOP_PER_PAIR * walked)
     bwd_bound, bwd_by = bound(bwd_bytes, BWD_FLOP_PER_PAIR * walked)
-    print(f"times (ms, bench shape, CUDA-graph replays): fwd kernel "
-          f"{fwd_ms:.4f} plain "
+    print(f"times (ms, bench shape, CUDA-graph replays over {n_copies} "
+          f"copies past {COLD_BYTES:.0e} bytes, HBM-cold; replays of one "
+          f"input in brackets): fwd kernel {fwd_ms:.4f} "
+          f"({times['fwd_ms']:.4f}) plain "
           f"{fwd_plain_ms:.3f} bound {fwd_bound:.4f} ({fwd_by}); bwd kernel "
-          f"{bwd_ms:.4f} plain {bwd_plain_ms:.3f} bound {bwd_bound:.4f} "
+          f"{bwd_ms:.4f} ({times['bwd_ms']:.4f}) plain {bwd_plain_ms:.3f} "
+          f"bound {bwd_bound:.4f} "
           f"({bwd_by}); tiles walked {int((walk_max > 0).sum())}/{n_tiles}, "
           f"pairs walked {pairs}, deepest tile {int(walk_max.max())}")
     return {
@@ -537,12 +623,15 @@ def plain_backward_ms(pay, offs, cnts, ntx, nty, d_rgb, d_tf, reps=3):
     return total / reps
 
 
-def slice_phase(cfg, state, batch, lpips_params=None):
+def slice_phase(cfg, state, batch, lpips_params=None, voxel_grid=None,
+                tag=None):
     """STEPS train steps through the CUDA kernels, the LPIPS term on when
-    lpips_params is given. Returns ({kernel: launches}, median ms/step)."""
+    lpips_params is given, the skin weights from voxel_grid when given.
+    Returns ({kernel: launches}, median ms/step, the last state)."""
     train_step = make_train_step(cfg, extent=1.0, articulated=True,
+                                 voxel_grid=voxel_grid,
                                  lpips_params=lpips_params)
-    tag = "slice" if lpips_params is None else "lpips slice"
+    tag = tag or ("slice" if lpips_params is None else "lpips slice")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in COUNTERS.values():
@@ -566,8 +655,8 @@ def slice_phase(cfg, state, batch, lpips_params=None):
           f"{int(metrics['pair_overflow_far'])}, psnr "
           f"{metrics['psnr'].item():.3f}, active {int(metrics['num_active'])}, "
           f"peak {peak_mb:.1f} MiB, launches {launches}")
-    check(all(math.isfinite(x) for x in losses), "non-finite loss")
-    check(losses[-1] < losses[0], "the loss did not fall")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss")
+    check(losses[-1] < losses[0], f"{tag}: the loss did not fall")
     if lpips_params is not None:
         print(f"{tag}: loss/lpips_loss {lpips_parts[0]:.6f} -> "
               f"{lpips_parts[-1]:.6f} (min {min(lpips_parts):.6f})")
@@ -578,7 +667,7 @@ def slice_phase(cfg, state, batch, lpips_params=None):
             else PER_STEP[name] * name.startswith("composite")
         check(n == per_step * STEPS * VIEWS,
               f"{tag}: {name} launched {n} times in {STEPS} steps")
-    return launches, ms
+    return launches, ms, state
 
 
 def bf16_check(got, want, what):
@@ -628,13 +717,17 @@ class Sweep:
     def __init__(self, name):
         self.name, self.rows = name, []
 
-    def add(self, layer, err, share, ms, plain_ms, bounds, library_ms):
+    def add(self, layer, err, share, ms, plain_ms, bounds, library_ms,
+            warm_ms=None):
+        """ms is HBM-cold (rotated_graph_ms); warm_ms, where given, the
+        replays of one input."""
         self.rows.append(dict(layer=layer, err=err, share=share, ms=ms,
                               plain_ms=plain_ms, bound=bounds,
-                              library_ms=library_ms))
+                              library_ms=library_ms, warm_ms=warm_ms))
         lib = "-" if library_ms is None else f"{library_ms:.4f}"
+        warm = "" if warm_ms is None else f" (one input {warm_ms:.4f})"
         print(f"  {self.name} {layer}: err {err:.3e} (differing share "
-              f"{share:.2e}) ms {ms:.4f} plain {plain_ms:.4f} bound "
+              f"{share:.2e}) ms {ms:.4f}{warm} plain {plain_ms:.4f} bound "
               f"{bounds[0]:.4f} (bytes {bounds[1]:.4f}, ops {bounds[2]:.4f}) "
               f"library {lib}")
 
@@ -648,8 +741,10 @@ class Sweep:
                    bound_ms=sum(r["bound"][0] for r in self.rows),
                    bound_by="bytes" if t_b >= t_f else "operations",
                    library_ms=None if None in libs else sum(libs))
+        warm = [r["warm_ms"] for r in self.rows]
+        warm = "" if None in warm else f" (one input {sum(warm):.4f})"
         print(f"{self.name}: sweep of {len(self.rows)} launches: ms "
-              f"{out['ms']:.4f} plain {out['plain_ms']:.3f} bound "
+              f"{out['ms']:.4f}{warm} plain {out['plain_ms']:.3f} bound "
               f"{out['bound_ms']:.4f} ({out['bound_by']}) library "
               f"{out['library_ms']} max abs err {out['max_abs_err']:.3e}")
         return out
@@ -720,6 +815,14 @@ def plan_line(form, plan, flops, ms, launch):
     print(line)
 
 
+def cold_copies(*tensors):
+    """The tensors and copies of them, together past COLD_BYTES, for
+    rotated_graph_ms."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return [tensors] + [tuple(t.clone() for t in tensors)
+                        for _ in range(int(COLD_BYTES // nbytes))]
+
+
 def conv_layer_checks(sweeps, params, si, li, xl, y, p, L, gen):
     """One layer: the conv kernel and the dx kernel against their plain
     versions, with times and bounds. The bounds count the bytes of the
@@ -734,13 +837,17 @@ def conv_layer_checks(sweeps, params, si, li, xl, y, p, L, gen):
     y_ref = conv_mod.conv3x3_layout_torch(xl, p.w, p.b, True, L)
     err, share = bf16_check(y, y_ref, f"{layer} conv")
     launch = lambda: conv_mod.conv3x3_layout_cuda(xl, p.w, p.b, True, L)  # noqa: E731
-    ms = cuda_graph_ms(launch, 20)
+    warm = cuda_graph_ms(launch, 20)
+    ms = rotated_graph_ms(
+        lambda x, w: conv_mod.conv3x3_layout_cuda(x, w, p.b, True, L),
+        cold_copies(xl, p.w))
     plain = cuda_ms(lambda: conv_mod.conv3x3_layout_torch(xl, p.w, p.b, True, L), 3)
     nbytes = 2 * px * (ci + co) + w_bytes + 4 * co
     lib = conv_library_ms(conv_mod.unlayout(xl, L)[..., :ci], w_hwio,
                           params[f"{layer}_b"])
     sweeps["conv3x3_layout"].add(layer, err, share, ms, plain,
-                                 bound_ms(nbytes, flops, BF16_FLOP_PER_S), lib)
+                                 bound_ms(nbytes, flops, BF16_FLOP_PER_S), lib,
+                                 warm)
     plan_line(f"{layer} conv", conv_mod.conv_plan(L, p.ci, p.co), flops, ms,
               launch)
 
@@ -751,7 +858,10 @@ def conv_layer_checks(sweeps, params, si, li, xl, y, p, L, gen):
                                            mask_by=y)
     err, share = bf16_check(dx, dx_ref, f"{layer} dx")
     launch = lambda: conv_mod.conv3x3_layout_dx_cuda(g, y, p.w_t, L)  # noqa: E731
-    ms = cuda_graph_ms(launch, 20)
+    warm = cuda_graph_ms(launch, 20)
+    ms = rotated_graph_ms(
+        lambda gg, yy, w: conv_mod.conv3x3_layout_dx_cuda(gg, yy, w, L),
+        cold_copies(g, y, p.w_t))
     plain = cuda_ms(lambda: conv_mod.conv3x3_layout_torch(
         g, p.w_t, None, False, L, mask_by=y), 3)
     nbytes = 2 * px * (2 * co + ci) + w_bytes
@@ -759,7 +869,7 @@ def conv_layer_checks(sweeps, params, si, li, xl, y, p, L, gen):
     lib = dx_library_ms(conv_mod.unlayout(gm, L), w_hwio)
     sweeps["conv3x3_layout_dx"].add(layer, err, share, ms, plain,
                                     bound_ms(nbytes, flops, BF16_FLOP_PER_S),
-                                    lib)
+                                    lib, warm)
     plan_line(f"{layer} dx", conv_mod.conv_plan(L, p.co, p.ci), flops,
               ms, launch)
 
@@ -901,6 +1011,173 @@ def lpips_batch(cfg, batch, params):
     return cfg, dict(batch, lpips_gt_feats=feats)
 
 
+def tree_to(x, device):
+    """Every tensor of a tree of named tuples (a TrainState) on device."""
+    if torch.is_tensor(x):
+        return x.to(device)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(tree_to(v, device) for v in x))
+    return x
+
+
+def near_threshold(x, threshold):
+    """x within one float32 ulp of the threshold."""
+    t = torch.tensor(threshold, dtype=torch.float32)
+    return (x - t).abs() <= torch.nextafter(t, torch.tensor(math.inf)) - t
+
+
+def max_abs_diff(got, want, rows):
+    """Max |got - want| over `rows` of two tensors (a NaN on both sides is
+    equal); got on the card, want on the CPU."""
+    d = (got.cpu() - want).abs()
+    d = torch.where(torch.isnan(d) & torch.isnan(want), 0.0, d)
+    return d[rows].max().item()
+
+
+def densify_event(tag, state, densify_step, opts):
+    """One densify event through make_densify_step on the card under
+    set_sync_debug_mode("error"), so that any host sync fails it, held to
+    the same event on the CPU from the same state and the same noise.
+    Returns (the new state, its info as ints)."""
+    dev = state.model.active.device
+    cap = state.model.capacity
+    use_size = state.step > opts.opacity_reset_interval
+    gen = torch.Generator(device=dev)
+    gen.set_state(state.gen.get_state())
+    noise = torch.randn((2, cap, 3), generator=gen, device=dev)
+    before = int(state.model.active.sum())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, info = densify_step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    info = {k: int(v) for k, v in info.items()}
+    ms = cuda_ms(lambda: densify_mod.densify_and_prune(
+        state.model, state.opt, state.stats, opts, 1.0, noise, use_size), 5)
+
+    c = tree_to(state, "cpu")
+    t0 = time.perf_counter()
+    want, want_opt, _, want_info = densify_mod.densify_and_prune(
+        c.model, c.opt, c.stats, opts, 1.0, noise.cpu(), use_size)
+    cpu_s = time.perf_counter() - t0
+    want_info = {k: int(v) for k, v in want_info.items()}
+    diff = new.model.active.cpu() != want.active
+    # what each slot's decisions compare, from the CPU's side
+    iso = opts.isotropic_scaling
+    near = (near_threshold(densify_mod.mean_gradient(c.stats),
+                           opts.densify_grad_threshold)
+            | near_threshold(get_scaling(c.model.params, iso).amax(1),
+                             opts.percent_dense * 1.0)
+            | near_threshold(get_opacity(want.params)[:, 0],
+                             opts.min_opacity_threshold)
+            | near_threshold(get_scaling(want.params, iso).amax(1), 0.1))
+    n_diff, unexplained = int(diff.sum()), int((diff & ~near).sum())
+    err = max(max_abs_diff(a, b, ~diff) for a, b in zip(
+        (*new.model.params, *new.opt.m, *new.opt.v),
+        (*want.params, *want_opt.m, *want_opt.v)))
+    print(f"densify ({tag}): active {before} -> {info['num_active']}, clones "
+          f"{info['clones']} splits {info['splits']} pruned {info['pruned']} "
+          f"alloc_dropped {info['alloc_dropped']} (size prune "
+          f"{'on' if use_size else 'off'}); no host sync under "
+          f"set_sync_debug_mode('error'); densify_and_prune {ms:.3f} ms on the "
+          f"card (mean of 5, CUDA events), {cpu_s:.2f} s on the CPU; against "
+          f"the CPU: {n_diff} slots' activity differs ({n_diff - unexplained} "
+          f"within one ulp of a threshold), info "
+          f"{'equal' if info == want_info else want_info}, max abs err "
+          f"{err:.3e} (tolerance {DENSIFY_ATOL})")
+    check(info["num_active"] == before + info["clones"] + info["splits"]
+          - info["pruned"], f"densify ({tag}): num_active does not add up")
+    check(unexplained == 0, f"densify ({tag}): {unexplained} slots differ "
+                            "from the CPU away from every threshold")
+    check(n_diff > 0 or info == want_info,
+          f"densify ({tag}): info {info} against the CPU's {want_info}")
+    check(err <= DENSIFY_ATOL, f"densify ({tag}): max abs err {err}")
+    return new, info
+
+
+def flagship_phase(dev):
+    """bench.py's flagship leg with the port: FLAGSHIP_CAPACITY gaussians
+    at WIDTH x HEIGHT with skin weights from a VOXEL_RES grid, STEPS steps,
+    densify events (a) and (b), the opacity reset and the LoOP outlier
+    prune. Returns the median ms/step."""
+    t0 = time.perf_counter()
+    cfg, model, batch, grid = hand_scene(dev, FLAGSHIP_CAPACITY, VOXEL_RES)
+    torch.cuda.synchronize()
+    print(f"flagship scene: {FLAGSHIP_CAPACITY} gaussians at {WIDTH}x{HEIGHT},"
+          f" {VIEWS} view(s), on procedural_skeleton(8) (bench.py's own "
+          f"fallback: its reference skeleton, novel_pose.pkl, is not in the "
+          f"repo), {time.perf_counter() - t0:.1f} s")
+    _, ms, state = slice_phase(cfg, init_train_state(model), batch,
+                               voxel_grid=grid, tag="flagship")
+    cap = state.model.capacity
+    densify_step, reset_step = make_densify_step(cfg, extent=1.0)
+
+    # (a): the state as it stands, every slot live
+    densify_event("a", state, densify_step, cfg.model)
+
+    # (b): every fourth slot pruned first, so that children find room, and
+    # the slots after them shrunk to half of percent_dense, so that those
+    # of them that pass the gradient threshold clone rather than split
+    slot = torch.arange(cap, device=dev)
+    model_b, opt_b, n_kill = densify_mod.prune_by_mask(state.model,
+                                                       state.opt, slot % 4 == 0)
+    opts = cfg.model
+    small = slot % 4 == 1
+    p = model_b.params
+    scaling = torch.where(small[:, None], math.log(opts.percent_dense * 0.5),
+                          p.scaling)
+    model_b = model_b._replace(params=p._replace(scaling=scaling))
+    state_b = state._replace(model=model_b, opt=opt_b)
+    grads = densify_mod.mean_gradient(state_b.stats)
+    if not bool(((grads >= opts.densify_grad_threshold)
+                 & model_b.active).any()):
+        thr = torch.quantile(grads[model_b.active], 0.9).item()
+        print(f"densify (b): no slot reaches densify_grad_threshold "
+              f"{opts.densify_grad_threshold} after {STEPS} steps; threshold "
+              f"set to the 90th percentile of the live slots' mean viewspace "
+              f"gradient, {thr:.6g}")
+        opts = dataclasses.replace(opts, densify_grad_threshold=thr)
+        densify_step = make_densify_step(
+            dataclasses.replace(cfg, model=opts), extent=1.0)[0]
+    print(f"densify (b): prune_by_mask of every fourth slot removed "
+          f"{int(n_kill)}; {int((small & model_b.active).sum())} live slots "
+          f"shrunk below percent_dense {opts.percent_dense}")
+    after, info = densify_event("b", state_b, densify_step, opts)
+    check(info["clones"] >= 1 and info["splits"] >= 1,
+          f"densify (b): {info['clones']} clones, {info['splits']} splits")
+
+    reset_ms = cuda_ms(lambda: reset_step(after), 5)
+    after = reset_step(after)
+    top = get_opacity(after.model.params)[after.model.active].max().item()
+    print(f"opacity reset: {reset_ms:.3f} ms (mean of 5), the largest live "
+          f"opacity {top:.6f}")
+    check(top <= 0.01 * (1 + 1e-5), f"opacity reset left {top}")
+
+    pts, valid = after.model.params.xyz, after.model.active
+    out_ms = cuda_ms(lambda: outliers.outlier_mask(
+        pts, valid, prob=LOOP_PROB, k=LOOP_K), 2)
+    mask = outliers.outlier_mask(pts, valid, prob=LOOP_PROB, k=LOOP_K)
+    prob = outliers.outlier_probability(pts, valid, k=LOOP_K).cpu()
+    t0 = time.perf_counter()
+    prob_cpu = outliers.outlier_probability(pts.cpu(), valid.cpu(), k=LOOP_K)
+    cpu_s = time.perf_counter() - t0
+    err = (prob - prob_cpu).abs().max().item()
+    diff = mask.cpu() != (prob_cpu > LOOP_PROB)
+    near = (prob_cpu - LOOP_PROB).abs() <= LOOP_ATOL
+    pruned, _, n_out = densify_mod.prune_by_mask(after.model, after.opt, mask)
+    print(f"outliers: LoOP k={LOOP_K} over {cap} slots ({int(valid.sum())} "
+          f"live): {out_ms:.3f} ms on the card (mean of 2, CUDA events), "
+          f"{cpu_s:.1f} s on the CPU; {int(mask.sum())} outliers, "
+          f"prune_by_mask removed {int(n_out)}, {int(pruned.active.sum())} "
+          f"live; against the CPU: probabilities max abs err {err:.3e} "
+          f"(tolerance {LOOP_ATOL}), {int(diff.sum())} masks differ, all "
+          f"within {LOOP_ATOL} of {LOOP_PROB}: {bool((~diff | near).all())}")
+    check(err <= LOOP_ATOL, f"LoOP probabilities differ by {err}")
+    check(bool((~diff | near).all()), "outlier masks differ from the CPU's")
+    return ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -912,8 +1189,13 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["composite", "conv3x3", "lpips_head"])
-    print(f"build: {time.perf_counter() - t0:.1f} s into {cuda_build.BUILD_DIR}")
+    names = ["composite", "conv3x3", "lpips_head"]
+    cached = [n for n in names if cuda_build.library_path(n).exists()
+              and cuda_build.log_path(n).exists()]
+    logs = cuda_build.build(names)
+    print(f"build: {time.perf_counter() - t0:.1f} s into {cuda_build.BUILD_DIR}"
+          f" (built earlier, their ptxas reports read from the logs beside "
+          f"them: {cached or 'none'})")
     spills = 0
     for log in logs.values():
         for line in log.splitlines():
@@ -936,19 +1218,24 @@ def main() -> int:
     spread = scene_payload(cfg, model, batch, dev, spread=True)
     results = kernel_phase(pay, bins, *spread, dev)
     del pay, bins, spread
-    launches, plain_step_ms = slice_phase(cfg, init_train_state(model), batch)
+    launches, plain_step_ms, _ = slice_phase(cfg, init_train_state(model),
+                                             batch)
 
     print(f"lpips kernels at {WIDTH}x{HEIGHT}, random-feature VGG16 seed "
           f"{LPIPS_SEED}:")
     params, lpips_results = lpips_kernel_phase(batch, dev)
     results.update(lpips_results)
     lcfg, lbatch = lpips_batch(cfg, batch, params)
-    lpips_launches, lpips_step_ms = slice_phase(
+    lpips_launches, lpips_step_ms, _ = slice_phase(
         lcfg, init_train_state(model), lbatch, params)
     print(f"lpips part of the step: {lpips_step_ms - plain_step_ms:.3f} ms "
           f"(median {lpips_step_ms:.3f} with LPIPS, {plain_step_ms:.3f} "
           "without)")
     launches.update({n: lpips_launches[n] for n in lpips_results})
+
+    flagship_ms = flagship_phase(dev)
+    print(f"flagship step: median {flagship_ms:.3f} ms (the primary plain "
+          f"step {plain_step_ms:.3f})")
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name],

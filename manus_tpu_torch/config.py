@@ -13,10 +13,17 @@ from manus_tpu_torch.models.gaussians import GaussianOpts
 
 @dataclasses.dataclass
 class DatasetConfig:
-    """The image size; the loaders' fields arrive with the loaders."""
+    """The image size and the hand's voxel grid; the loaders' fields arrive
+    with the loaders."""
 
     width: int = 128
     height: int = 128
+    # hand voxel grid (read by data/voxel.py make_voxel_grid as
+    # build_voxel_grid's res, ratio, offset):
+    # the reference's hand_model.yaml values
+    grid_res: int = 64
+    grid_size: Tuple[float, float, float] = (1.1, 0.9, 0.65)
+    grid_offset: Tuple[float, float, float] = (0.0, 0.0, -0.03)
 
 
 @dataclasses.dataclass
@@ -54,6 +61,11 @@ class ExperimentConfig:
     model: GaussianOpts = dataclasses.field(default_factory=GaussianOpts)
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     raster: RasterOptions = dataclasses.field(default_factory=RasterOptions)
+    # hand skin weights: "mano_init_voxel" (sampled every step from the
+    # grid that data/voxel.py make_voxel_grid builds) or
+    # "mano_init_points" (stored per point); make_train_step checks that
+    # its voxel_grid argument agrees
+    skin_init: str = "mano_init_voxel"
 
 
 def _tuned_raster(raster: RasterOptions) -> RasterOptions:
@@ -76,5 +88,6 @@ def hand_config() -> ExperimentConfig:
         losses=("rgb_loss", "ssim_loss", "isotropic_reg", "lpips_loss"),
         loss_weight=(0.8, 0.2, 0.1, 0.1),
     )
+    cfg.dataset.grid_res = 128
     cfg.raster = _tuned_raster(cfg.raster)
     return cfg

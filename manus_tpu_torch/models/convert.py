@@ -1,8 +1,9 @@
-"""Carry models, cameras and LPIPS weights across as numpy arrays.
+"""Carry models, cameras, voxel grids and LPIPS weights across as numpy
+arrays.
 
-The JAX package's GaussianParams leaves, Camera fields and LPIPS params
-keys have the same names and shapes here, so a model, camera or LPIPS
-params dict converted to numpy on one side loads on the other.
+The JAX package's GaussianParams leaves, Camera fields, checkpoint keys
+of the voxel grid and LPIPS params keys have the same names and shapes
+here, so what is converted to numpy on one side loads on the other.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import numpy as np
 import torch
 
 from manus_tpu_torch.models.gaussians import GaussianModel, GaussianParams
+from manus_tpu_torch.train.workloads import VoxelGrid
 from manus_tpu_torch.utils.camera import TENSOR_FIELDS, Camera
 from manus_tpu_torch.utils.device import resolve_device
 
@@ -61,3 +63,21 @@ def lpips_params_from_numpy(d: dict, device=None) -> dict:
 
 def lpips_params_to_numpy(params: dict) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def voxel_grid_from_numpy(d: dict, device=None) -> VoxelGrid:
+    """{vg_center [3], vg_scale [3], vg_weights [D, H, W, B+1]} (the
+    checkpoint's keys) -> VoxelGrid of float32 tensors on `device`."""
+    device = resolve_device(device)
+
+    def t(k):
+        return torch.tensor(np.asarray(d[k], np.float32), device=device)
+
+    return VoxelGrid(center=t("vg_center"), scale=t("vg_scale"),
+                     weights=t("vg_weights"))
+
+
+def voxel_grid_to_numpy(grid: VoxelGrid) -> dict:
+    return dict(vg_center=grid.center.cpu().numpy(),
+                vg_scale=grid.scale.cpu().numpy(),
+                vg_weights=grid.weights.cpu().numpy())

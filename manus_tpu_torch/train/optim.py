@@ -3,7 +3,9 @@
 The reference's torch.optim.Adam with six named groups and per-group
 learning rates (eps 1e-15), written functionally over GaussianParams and
 masked by `active`; densify surgery is a masked moment reset. The xyz
-group follows the log-linear decay of expon_lr.
+group follows the log-linear decay of expon_lr. A single extra array (the
+trainable skin weights) has its own moments, ArrayAdamState, and shares
+the main state's step.
 """
 from __future__ import annotations
 
@@ -109,3 +111,45 @@ def reset_moments_rows(state: AdamState, rows_mask: torch.Tensor) -> AdamState:
         v=GaussianParams(*(zero_rows(x) for x in state.v)),
         step=state.step,
     )
+
+
+def reset_moments_leaf(state: AdamState, leaf: str) -> AdamState:
+    """Zero the moments of one whole parameter group (opacity reset)."""
+    m = state.m._replace(**{leaf: torch.zeros_like(getattr(state.m, leaf))})
+    v = state.v._replace(**{leaf: torch.zeros_like(getattr(state.v, leaf))})
+    return AdamState(m=m, v=v, step=state.step)
+
+
+class ArrayAdamState(NamedTuple):
+    """Adam moments of one auxiliary array (the skin weights); its bias
+    correction uses the main AdamState's step."""
+
+    m: torch.Tensor
+    v: torch.Tensor
+
+
+def init_array_adam(x: torch.Tensor) -> ArrayAdamState:
+    return ArrayAdamState(m=torch.zeros_like(x), v=torch.zeros_like(x))
+
+
+def array_adam_update(p: torch.Tensor, g: torch.Tensor, state: ArrayAdamState,
+                      lr: float, active: torch.Tensor, step: int):
+    """Masked Adam step of one array (the skinning_lr group). `step` is the
+    main optimiser's post-increment step; the bias corrections are the
+    float32 ones of adam_update, passed as scalars so that nothing is
+    copied to the device. Returns (p, state)."""
+    bc1 = float(1.0 - _f32(BETA1) ** step)
+    bc2 = float(1.0 - _f32(BETA2) ** step)
+    mask = _row_mask(active, p)
+    g = torch.where(mask, g, 0.0)
+    m = BETA1 * state.m + (1 - BETA1) * g
+    v = BETA2 * state.v + (1 - BETA2) * g * g
+    upd = p - lr * (m / bc1) / (torch.sqrt(v / bc2) + EPS)
+    return torch.where(mask, upd, p), ArrayAdamState(m=m, v=v)
+
+
+def array_reset_rows(state: ArrayAdamState,
+                     rows_mask: torch.Tensor) -> ArrayAdamState:
+    mask = _row_mask(rows_mask, state.m)
+    return ArrayAdamState(m=torch.where(mask, 0.0, state.m),
+                          v=torch.where(mask, 0.0, state.v))

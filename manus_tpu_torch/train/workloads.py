@@ -1,11 +1,13 @@
-"""The training step of the object and hand (articulated LBS) workloads.
+"""The training step of the object and hand (articulated LBS) workloads,
+and the densification events between steps.
 
 One step renders each view, sums the losses, takes gradients with
-autograd, applies masked per-group Adam, runs the mask-pruning phase and
-accumulates densification statistics. Batches carry a leading view axis
-V; views are an unrolled loop. Single device; decisions that depend only
-on the step number are taken on the host, and those that depend on data
-are tensor masks, so a step makes no host round-trip.
+autograd, applies masked per-group Adam (and, with trainable point skin
+weights, their own Adam), runs the mask-pruning phase and accumulates
+densification statistics. Batches carry a leading view axis V; views are
+an unrolled loop. Single device; decisions that depend only on the step
+number are taken on the host, and those that depend on data are tensor
+masks, so a step or a densify event makes no host round-trip.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from manus_tpu_torch.models.gaussians import (
     get_opacity,
     get_scaling,
 )
+from manus_tpu_torch.ops.grid_sample import skinning_weights_from_voxel_grid
 from manus_tpu_torch.ops.mask_prune import points_outside_mask
 from manus_tpu_torch.ops.rasterizer.api import RasterConfig, render_gaussians
 from manus_tpu_torch.ops.skinning import skin_gaussians
@@ -33,30 +36,48 @@ from manus_tpu_torch.utils import losses as loss_mod
 from manus_tpu_torch.utils.camera import index_camera
 
 
+class VoxelGrid(NamedTuple):
+    """The skinning-weight grid (data/voxel.py build_voxel_grid)."""
+
+    center: torch.Tensor  # [3]
+    scale: torch.Tensor  # [3]
+    weights: torch.Tensor  # [D, H, W, B+1], the background channel last
+
+
 class TrainState(NamedTuple):
     model: GaussianModel
     opt: optim_mod.AdamState
     stats: densify_mod.DensifyStats
     step: int
+    gen: torch.Generator  # on the model's device: the split noise
     mask_pruned_flag: torch.Tensor  # [] bool: did mask-prune fire this step
+    # Adam moments of the per-point skin weights; None without them
+    skin_opt: Optional[optim_mod.ArrayAdamState] = None
 
 
-def init_train_state(model: GaussianModel) -> TrainState:
+def init_train_state(model: GaussianModel, seed: int = 0) -> TrainState:
     dev = model.active.device
     return TrainState(
         model=model,
         opt=optim_mod.init_adam(model.params),
         stats=densify_mod.init_stats(model.capacity, dev),
         step=0,
+        gen=torch.Generator(device=dev).manual_seed(seed),
         mask_pruned_flag=torch.zeros((), dtype=torch.bool, device=dev),
+        skin_opt=None if model.skin_weights is None
+        else optim_mod.init_array_adam(model.skin_weights),
     )
 
 
 def resolve_skin_weights(model: GaussianModel,
-                         voxel_grid=None) -> Optional[torch.Tensor]:
-    """Points mode: the stored per-point weights."""
+                         voxel_grid: Optional[VoxelGrid] = None
+                         ) -> Optional[torch.Tensor]:
+    """Voxel mode samples the weights from the grid at the current
+    (detached) positions every step; points mode uses the stored ones."""
     if voxel_grid is not None:
-        raise NotImplementedError("voxel-grid skinning is not ported yet")
+        return skinning_weights_from_voxel_grid(
+            model.params.xyz.detach(), voxel_grid.center, voxel_grid.scale,
+            voxel_grid.weights)
     return model.skin_weights
 
 
@@ -82,26 +103,37 @@ def make_raster_config(cfg: ExperimentConfig) -> RasterConfig:
 
 
 def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
-                    voxel_grid=None, mesh=None, lpips_params=None):
+                    voxel_grid: Optional[VoxelGrid] = None, mesh=None,
+                    lpips_params=None):
     """The train step for one workload configuration.
 
     Batch (leading V = views per step): rgb [V,H,W,3], mask [V,H,W,1],
     cameras: a stacked Camera [V], bg [3], and for the hand bone_tf
-    [B,4,4] and keypoints [K,3]; optionally lpips_gt_feats, the gt's
-    LPIPS stage features (a tuple of per-stage tensors with a leading V,
-    lpips.lpips_features of each view), which skip the gt's VGG forward.
+    [B,4,4] (B+1: a voxel grid's background channel) and keypoints [K,3];
+    optionally lpips_gt_feats, the gt's LPIPS stage features (a tuple of
+    per-stage tensors with a leading V, lpips.lpips_features of each
+    view), which skip the gt's VGG forward.
     lpips_params (a VGG16-LPIPS params dict, packed here once) feeds the
     lpips_loss term from step opts.start_lpips_iter on. Returns
     step(state, batch) -> (state, metrics), metrics a dict of 0-d tensors.
+    With voxel_grid (data/voxel.py make_voxel_grid) the skin weights are
+    sampled from it every step; the hand takes one exactly when
+    cfg.skin_init is "mano_init_voxel". With opts.optimize_skin_weights
+    and no grid the model's per-point skin weights are trained at
+    opts.skinning_lr and stay a convex blend.
+    `extent` is read by the densify events (make_densify_step), not here.
     """
-    del extent  # densification, which reads it, is not ported yet
+    del extent
     opts = cfg.model
     if mesh is not None:
         raise NotImplementedError("multi-device training is not ported yet")
-    if voxel_grid is not None:
-        raise NotImplementedError("voxel-grid skinning is not ported yet")
-    if opts.optimize_skin_weights:
-        raise NotImplementedError("trainable skin weights are not ported yet")
+    if articulated and (voxel_grid is not None) != (
+            cfg.skin_init == "mano_init_voxel"):
+        raise ValueError(
+            f"skin_init {cfg.skin_init!r} with "
+            f"{'a' if voxel_grid is not None else 'no'} voxel grid")
+    # per-point weights are a leaf only without a grid
+    train_sw = bool(opts.optimize_skin_weights) and voxel_grid is None
     raster_cfg = make_raster_config(cfg)
     loss_names = tuple(cfg.loss.losses)
     loss_weights = tuple(cfg.loss.loss_weight)
@@ -148,28 +180,44 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
         v = batch["rgb"].shape[0]
         model = state.model
         n = model.capacity
-        skin_w = resolve_skin_weights(model)
+        skin_w = resolve_skin_weights(model, voxel_grid)
         params = GaussianParams(*(p.detach().requires_grad_(True)
                                   for p in model.params))
         m2d = torch.zeros(v, n, 2, device=model.active.device,
                           requires_grad=True)
+        leaves = [*params, m2d]
+        if train_sw:
+            skin_w = skin_w.detach().requires_grad_(True)
+            leaves.append(skin_w)
         # the start_lpips_iter gate (reference base.py:333-341)
         lpips_on = state.step >= opts.start_lpips_iter
         loss, aux = loss_fn(params, m2d, model.active, skin_w, batch,
                             lpips_on)
-        grads = torch.autograd.grad(loss, [*params, m2d], allow_unused=True)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
-                 for g, x in zip(grads, [*params, m2d])]
-        g_params = GaussianParams(*grads[:-1])
+                 for g, x in zip(grads, leaves)]
+        g_params = GaussianParams(*grads[:len(params)])
         # loss averages the views: rescale to per-view-loss gradients, so
         # densify thresholds do not depend on the number of views
-        g_m2d = grads[-1] * v
+        g_m2d = grads[len(params)] * v
 
         step = state.step
         lrs = optim_mod.group_learning_rates(opts, step)
         new_params, new_opt = optim_mod.adam_update(
             model.params, g_params, state.opt, lrs, model.active)
         loss = loss.detach()
+        new_sw, new_skin_opt = model.skin_weights, state.skin_opt
+        if train_sw:
+            # masked Adam, then clamp >= 0 and renormalise, so the LBS blend
+            # stays a convex combination of bone transforms
+            new_sw, new_skin_opt = optim_mod.array_adam_update(
+                model.skin_weights, grads[-1], state.skin_opt,
+                opts.skinning_lr, model.active, new_opt.step)
+            new_sw = new_sw.clamp(min=0.0)
+            norm = new_sw.sum(-1, keepdim=True)
+            new_sw = torch.where(model.active[:, None] & (norm > 1e-8),
+                                 new_sw / norm.clamp(min=1e-8),
+                                 model.skin_weights)
 
         # mask pruning phase (reference on_after_backward)
         in_seg_phase = opts.remove_seg_start <= step < opts.remove_seg_end
@@ -191,6 +239,8 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
         # an all-false mask leaves active and the moments as they are
         new_active = model.active & ~outside
         new_opt = optim_mod.reset_moments_rows(new_opt, outside)
+        if new_skin_opt is not None:
+            new_skin_opt = optim_mod.array_reset_rows(new_skin_opt, outside)
 
         # densification stats, skipped on mask-prune steps
         new_stats = state.stats
@@ -215,14 +265,46 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
         for k, val in aux["parts"].items():
             metrics[f"loss/{k}"] = val.detach().mean()
 
-        new_state = TrainState(
+        new_state = state._replace(
             model=model._replace(params=GaussianParams(
-                *(p.detach() for p in new_params)), active=new_active),
+                *(p.detach() for p in new_params)), active=new_active,
+                skin_weights=new_sw),
             opt=new_opt,
             stats=new_stats,
             step=step + 1,
             mask_pruned_flag=do_prune,
+            skin_opt=new_skin_opt,
         )
         return new_state, metrics
 
     return train_step
+
+
+def make_densify_step(cfg: ExperimentConfig, extent: float):
+    """(densify_step, opacity_reset_step), each state -> state (and the
+    densify step's info). The split noise is drawn from state.gen on the
+    state's device; the size prune runs once the step is past
+    opts.opacity_reset_interval, a host decision on the int step."""
+    opts = cfg.model
+
+    def densify_step(state: TrainState):
+        cap = state.model.capacity
+        noise = torch.randn((2, cap, 3), generator=state.gen,
+                            device=state.model.active.device)
+        model, opt, stats, info = densify_mod.densify_and_prune(
+            state.model, state.opt, state.stats, opts, extent, noise,
+            use_size_threshold=state.step > opts.opacity_reset_interval)
+        skin_opt = state.skin_opt
+        if skin_opt is not None:
+            # written and killed slots are exactly the activity flips
+            # (children land in free slots)
+            skin_opt = optim_mod.array_reset_rows(
+                skin_opt, model.active != state.model.active)
+        return state._replace(model=model, opt=opt, stats=stats,
+                              skin_opt=skin_opt), info
+
+    def opacity_reset_step(state: TrainState):
+        model, opt = densify_mod.reset_opacity(state.model, state.opt)
+        return state._replace(model=model, opt=opt)
+
+    return densify_step, opacity_reset_step

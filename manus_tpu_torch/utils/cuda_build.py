@@ -3,7 +3,10 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled for Hopper
 (sm_90a) into its own shared library under `manus_tpu_torch/_build/`,
 named by a hash of its source and flags, so an unchanged source is built
-once per checkout. Several sources build in parallel, one nvcc each.
+once per checkout; nvcc's output (ptxas's registers, shared memory and
+spills) is kept beside the library under the same name, so a later
+process reads the report of a library it did not build. Several sources
+build in parallel, one nvcc each.
 Nothing is built when a module is imported: the first call that needs a
 library builds it.
 """
@@ -44,17 +47,23 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    """nvcc's output for the library library_path(name)."""
+    return library_path(name).with_suffix(".log")
+
+
 def build(names) -> dict[str, str]:
     """Compile every named source that has no library yet, all at once.
 
-    Returns {name: nvcc's output} for the sources it compiled (ptxas's
-    register and shared-memory report); raises on a failed compile.
+    Returns {name: nvcc's output} for every named source, read from the
+    log kept beside its library when an earlier process built it; raises
+    on a failed compile.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
         out = library_path(name)
-        if out.exists():
+        if out.exists() and log_path(name).exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
@@ -62,19 +71,21 @@ def build(names) -> dict[str, str]:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, tmp, out)
-    logs = {}
     failed = []
     for name, (proc, tmp, out) in jobs.items():
         log, _ = proc.communicate()
-        logs[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            # the log first: a library in place always has its log
+            tmp_log = tmp.with_suffix(".log")
+            tmp_log.write_text(log)
+            os.replace(tmp_log, log_path(name))
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed\n" + "\n".join(failed))
-    return logs
+    return {name: log_path(name).read_text() for name in names}
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:

@@ -1,16 +1,19 @@
 """Where the time of the port's hand training step goes, on one NVIDIA card.
 
-    python3 scripts/torch_step_profile.py [--steps N] [--lpips]
+    python3 scripts/torch_step_profile.py [--steps N] [--lpips] [--voxel]
 
-Builds chip_smoke.py's bench scene (65,536 gaussians, 512x512, one view),
-with --lpips the step with the VGG16-LPIPS term on (chip_smoke.py's
-lpips slice: random-feature VGG16 seed 0, weight 0.1, the gt features
-cached), then reports:
+Builds chip_smoke.py's bench scene (65,536 gaussians, 512x512, one view)
+or, with --voxel, its flagship scene (131,072 gaussians, the skin weights
+sampled every step from a 96-resolution voxel grid); with --lpips the
+step with the VGG16-LPIPS term on (chip_smoke.py's lpips slice:
+random-feature VGG16 seed 0, weight 0.1, the gt features cached), then
+reports:
 
   * each forward stage of one render timed alone (CUDA events, mean of 10
-    calls, no autograd): LBS, SH colours, projection, binning, payload,
-    the composite kernel, image assembly with the losses (with --lpips,
-    the LPIPS forward included);
+    calls, no autograd): with --voxel the grid sample of the skin
+    weights, then LBS, SH colours, projection, binning, payload, the
+    composite kernel, image assembly with the losses (with --lpips, the
+    LPIPS forward included);
   * the whole step (host clock around a synchronised step, median);
   * torch.profiler over N steps: device time by kernel name, the number
     of kernel launches per step, and the device's busy share (summed
@@ -47,20 +50,25 @@ from manus_tpu_torch.train.workloads import (  # noqa: E402
     forward_gaussians,
     init_train_state,
     make_train_step,
+    resolve_skin_weights,
 )
 from manus_tpu_torch.utils import losses as loss_mod  # noqa: E402
 from manus_tpu_torch.utils.camera import index_camera  # noqa: E402
 
 
-def stage_times(cfg, model, batch, lpips_params=None):
+def stage_times(cfg, model, batch, lpips_params=None, grid=None):
     """ms of each forward stage of one view's render, timed alone."""
     cam = index_camera(batch["cameras"], 0)
     p, r, w, h = model.params, cfg.raster, cfg.dataset.width, cfg.dataset.height
     ntx, nty = w // TILE, h // TILE
     out = {}
     with torch.no_grad():
+        def grid_sample():
+            return resolve_skin_weights(model, grid)
+        skin_w = grid_sample()
+
         def lbs():
-            return forward_gaussians(p, model.active, model.skin_weights,
+            return forward_gaussians(p, model.active, skin_w,
                                      batch["bone_tf"], cfg.model)
         posed, cov, tf = lbs()
         opac = get_opacity(p).reshape(-1)
@@ -97,7 +105,8 @@ def stage_times(cfg, model, batch, lpips_params=None):
                 lpips_params=lpips_params,
                 lpips_gt_feats=None if feats is None else [f[0] for f in feats])
 
-        for name, fn in (("lbs", lbs), ("sh_colours", colours),
+        stages = (("grid_sample", grid_sample),) if grid is not None else ()
+        for name, fn in stages + (("lbs", lbs), ("sh_colours", colours),
                          ("projection", project), ("binning", binning),
                          ("payload", payload), ("composite_fwd_kernel", kernel),
                          ("image_and_losses", image_and_losses)):
@@ -110,23 +119,32 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--lpips", action="store_true",
                     help="profile the step with the LPIPS term on")
+    ap.add_argument("--voxel", action="store_true",
+                    help="profile chip_smoke.py's flagship scene (131,072 "
+                         "gaussians, skin weights from a 96-resolution grid)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     card = chip_smoke.gpu_name_and_power()
-    cfg, model, batch = chip_smoke.build_scene(dev)
+    if args.voxel:
+        cfg, model, batch, grid = chip_smoke.hand_scene(
+            dev, chip_smoke.FLAGSHIP_CAPACITY, chip_smoke.VOXEL_RES)
+    else:
+        cfg, model, batch = chip_smoke.build_scene(dev)
+        grid = None
     params = None
     if args.lpips:
         params = pack_lpips_params(
             random_lpips_params(chip_smoke.LPIPS_SEED, device=dev))
         cfg, batch = chip_smoke.lpips_batch(cfg, batch, params)
-    stages = stage_times(cfg, model, batch, params)
+    stages = stage_times(cfg, model, batch, params, grid)
 
     step = make_train_step(cfg, extent=1.0, articulated=True,
-                           lpips_params=params)
+                           voxel_grid=grid, lpips_params=params)
     state = init_train_state(model)
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(10):
         t0 = time.perf_counter()
@@ -165,7 +183,11 @@ def main() -> int:
         print(f"{title}:")
         for name, ms, count in rows[:25]:
             print(f"  {ms:9.4f} ms/step  x{count:6.1f}  {name[:110]}")
-    result = dict(card=card, lpips=args.lpips, stage_ms=stages, step_ms_median=step_ms,
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    print(f"peak device memory over the steps {peak_mib:.1f} MiB")
+    result = dict(card=card, lpips=args.lpips, voxel=args.voxel,
+                  capacity=model.capacity, peak_mib=peak_mib,
+                  stage_ms=stages, step_ms_median=step_ms,
                   profiled_wall_ms_per_step=per_step_wall,
                   device_busy_ms_per_step=busy_ms,
                   device_busy_share=busy_ms / per_step_wall,

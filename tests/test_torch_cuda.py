@@ -9,6 +9,8 @@ non-zero background (the d T_final path), both early-exit paths, a tile
 at the 4,096-pair cap beside shallow ones (many depth chunks, pixels that
 stop in different chunks), and a second walk that does not stop.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -456,3 +458,129 @@ def test_lpips_wrappers_check_inputs(dev):
     a = torch.zeros(L.rows - 1, 64, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="rows"):
         conv.head_fwd_cuda(a, a, lin, L)
+
+
+def _tree_to(x, device):
+    """Every tensor of a tree of named tuples on `device`."""
+    if torch.is_tensor(x):
+        return x.to(device)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_tree_to(v, device) for v in x))
+    return x
+
+
+def _densify_state(dev, cap=4096, n0=3000, seed=0):
+    """A model of n0 live slots in cap, random moments and statistics of
+    which about a tenth pass the gradient threshold, on `dev`; every third
+    slot's scales are half of percent_dense, so that it clones where the
+    others split."""
+    from manus_tpu_torch.models import densify
+    from manus_tpu_torch.models.gaussians import GaussianOpts, init_gaussian_model
+    from manus_tpu_torch.train import workloads
+
+    rng = np.random.RandomState(seed)
+    model = init_gaussian_model(rng.uniform(-1, 1, (n0, 3)),
+                                rng.uniform(0, 1, (n0, 3)), cap,
+                                skin_weights=rng.dirichlet(np.ones(5), n0),
+                                device=dev)
+    p = model.params
+    rot = torch.tensor(rng.normal(size=(cap, 4)).astype(np.float32), device=dev)
+    op = torch.tensor(rng.normal(-1, 3, (cap, 1)).astype(np.float32), device=dev)
+    small = torch.arange(cap, device=dev)[:, None] % 3 == 0
+    scaling = torch.where(small, math.log(GaussianOpts().percent_dense * 0.5),
+                          p.scaling)
+    model = model._replace(params=p._replace(rotation=rot, opacity=op,
+                                             scaling=scaling))
+    state = workloads.init_train_state(model)
+    t = lambda x: torch.tensor(x.astype(np.float32), device=dev)  # noqa: E731
+    stats = densify.DensifyStats(
+        grad_accum=t(rng.exponential(1e-4, cap)), denom=t(rng.randint(0, 3, cap)),
+        max_radii2d=t(rng.uniform(0, 30, cap)))
+    opt = state.opt._replace(m=type(p)(*(torch.randn_like(x) for x in p)))
+    return state._replace(opt=opt, stats=stats, step=3001)
+
+
+def test_cuda_densify_event_matches_cpu_without_sync(dev):
+    """make_densify_step on the card under set_sync_debug_mode("error")
+    (no host sync), then the same event on the CPU from the same state and
+    the same noise: equal masks and counters, values within 1e-6. Then
+    the mask prune and the opacity reset, also without a sync."""
+    from manus_tpu_torch.config import hand_config
+    from manus_tpu_torch.models import densify
+    from manus_tpu_torch.train import workloads
+
+    cfg = hand_config()
+    state = _densify_state(dev)
+    gen = torch.Generator(device=dev)
+    gen.set_state(state.gen.get_state())
+    noise = torch.randn((2, state.model.capacity, 3), generator=gen, device=dev)
+    densify_step, reset_step = workloads.make_densify_step(cfg, extent=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, info = densify_step(state)
+        kill = torch.arange(state.model.capacity, device=dev) % 4 == 0
+        pruned, _, n_kill = densify.prune_by_mask(new.model, new.opt, kill)
+        reset = reset_step(new)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    cstate = _tree_to(state, "cpu")
+    want, wopt, _, winfo = densify.densify_and_prune(
+        cstate.model, cstate.opt, cstate.stats, cfg.model, 1.0, noise.cpu(),
+        use_size_threshold=True)
+    assert int(info["clones"]) > 0 and int(info["splits"]) > 0
+    assert int(info["pruned"]) > 0
+    for k in winfo:
+        assert int(info[k]) == int(winfo[k]), k
+    assert torch.equal(new.model.active.cpu(), want.active)
+    for a, b in zip((*new.model.params, new.model.skin_weights, *new.opt.m),
+                    (*want.params, want.skin_weights, *wopt.m)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-6, rtol=0,
+                                   equal_nan=True)
+    assert int(n_kill) == int((want.active & kill.cpu()).sum())
+    assert not (pruned.active & kill).any()
+    assert float(torch.sigmoid(reset.model.params.opacity).max()) <= 0.0101
+
+
+def test_cuda_grid_sample_matches_cpu(dev):
+    """grid_sample_trilinear on the card against the CPU: values within
+    1e-6, coordinate gradients within 1e-5."""
+    from manus_tpu_torch.ops.grid_sample import grid_sample_trilinear
+
+    rng = np.random.RandomState(0)
+    grid = torch.tensor(rng.rand(9, 11, 7, 14).astype(np.float32))
+    coords = torch.tensor(np.concatenate([
+        rng.uniform(-1.3, 1.3, (5000, 3)),
+        [[1.0, 1.0, 1.0], [-1.0, -1.0, -1.0]]]).astype(np.float32))
+    cot = torch.tensor(rng.rand(coords.shape[0], 14).astype(np.float32))
+
+    def run(d):
+        x = coords.to(d).requires_grad_(True)
+        y = grid_sample_trilinear(grid.to(d), x)
+        (g,) = torch.autograd.grad((y * cot.to(d)).sum(), [x])
+        return y.detach().cpu(), g.cpu()
+
+    y_k, g_k = run(dev)
+    y_p, g_p = run("cpu")
+    torch.testing.assert_close(y_k, y_p, atol=1e-6, rtol=0)
+    torch.testing.assert_close(g_k, g_p, atol=1e-5, rtol=0)
+
+
+def test_cuda_outliers_match_cpu(dev):
+    """LoOP on the card against the CPU on a dense cloud (where a matmul's
+    rounding would reorder near-equal neighbours): probabilities within
+    1e-5 (sums of the k distances and of plof^2 in another order), equal
+    masks."""
+    from manus_tpu_torch.ops.outliers import outlier_mask, outlier_probability
+
+    rng = np.random.RandomState(0)
+    pts = torch.tensor(np.concatenate([
+        rng.normal(0.1, 0.02, (6000, 3)), rng.uniform(-1, 1, (40, 3))]
+    ).astype(np.float32))
+    valid = torch.tensor(rng.rand(pts.shape[0]) > 0.1)
+    got = outlier_probability(pts.to(dev), valid.to(dev), k=32).cpu()
+    want = outlier_probability(pts, valid, k=32)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    mask = outlier_mask(pts.to(dev), valid.to(dev)).cpu()
+    assert torch.equal(mask, want > 0.8) and 0 < int(mask.sum()) < 100

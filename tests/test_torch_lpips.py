@@ -405,6 +405,7 @@ def test_make_train_step_checks_the_lpips_engine_once():
 
     params = tlpips.random_lpips_params(0, device="cpu")
     cfg = tconfig.hand_config()
+    cfg.skin_init = "mano_init_points"
     for conv in ("auto", "pallas"):
         cfg.loss = dataclasses.replace(cfg.loss, lpips_conv=conv)
         assert callable(twork.make_train_step(cfg, 1.0, True,

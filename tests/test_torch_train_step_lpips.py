@@ -56,6 +56,7 @@ WEIGHTS = (0.8, 0.2, 0.1, 10.0)
 
 def _configure(cfg, backend):
     cfg.capacity = CAP
+    cfg.skin_init = "mano_init_points"
     cfg.dataset.width, cfg.dataset.height = W, H
     cfg.loss = dataclasses.replace(cfg.loss, losses=LOSSES,
                                    loss_weight=WEIGHTS, lpips_conv="pallas")
@@ -76,8 +77,7 @@ def _port_state(jstate):
     def leaves(tree):
         return GaussianParams(*(torch.tensor(np.asarray(x)) for x in tree))
 
-    return twork.TrainState(
-        model=model,
+    return twork.init_train_state(model)._replace(
         opt=AdamState(m=leaves(jstate.opt.m), v=leaves(jstate.opt.v),
                       step=int(jstate.opt.step)),
         stats=DensifyStats(*(torch.tensor(np.asarray(x)) for x in jstate.stats)),
