@@ -63,7 +63,25 @@ Phases, each of which exits non-zero on failure:
      torch.cuda.set_sync_debug_mode("error") (no host sync) and held to
      the same event on the CPU (the activity invariant, equal masks and
      values); the opacity reset; the LoOP outlier mask over every slot,
-     held to the CPU's.
+     held to the CPU's;
+  9. trainer: the training CLI in process, `manus_tpu_torch.main.main`,
+     on the HAND_GAUSSIAN default at full width (TRAINER_CAPACITY
+     gaussians, voxel skinning on a 128-resolution grid, 512x512, 8
+     cameras, 4 frames of which 3 train, TRAINER_SAMPLE_SIZE init
+     points a bone, the most that fit the capacity), into
+     chiprun_out/trainer/; only the cadence and the LPIPS switches are
+     overridden, so that in TRAINER_STEPS steps the densify events (200,
+     300), the opacity reset (250), the LoOP outlier prune (300),
+     validation and checkpoints (200, 400) all fire and the LPIPS loss
+     runs from step 100 through the gt feature cache. The loss must fall,
+     the gt feature cache must be built, the last checkpoint must load
+     back equal leaf for leaf, the raster backend must be "cuda", and
+     every kernel's launches over the run must be what the run implies
+     (the composite backward once a step; the dx and the heads once a
+     layer or stage and LPIPS step); then the run is resumed from its
+     directory with checkpoint=best for TRAINER_RESUME_STEPS steps. The
+     run's checkpoints and PLYs (about 0.8 GB) are deleted afterwards;
+     its config, CSVs and images stay.
 
 The last lines are a {"kernels": [...]} JSON line, the card's name and
 power limit from nvidia-smi, and {"ok": true, "device": {...}}.
@@ -74,6 +92,8 @@ import dataclasses
 import itertools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -109,6 +129,8 @@ from manus_tpu_torch.ops.rasterizer.binning import bin_gaussians
 from manus_tpu_torch.ops.rasterizer.payload import NUM_LIVE, build_payload
 from manus_tpu_torch.ops.rasterizer.projection import TILE, project_gaussians
 from manus_tpu_torch.ops.skinning import bone_deformation_transforms
+from manus_tpu_torch import main as cli
+from manus_tpu_torch.train import checkpoint as ckpt_mod
 from manus_tpu_torch.train import lpips as lpips_mod
 from manus_tpu_torch.train.workloads import (
     forward_gaussians,
@@ -181,6 +203,28 @@ FLAGSHIP_CAPACITY, VOXEL_RES = 131072, 96
 # probability lies within 1e-4 of the 0.8 cut. k = 32 as outlier_mask's
 # default.
 DENSIFY_ATOL, LOOP_ATOL, LOOP_PROB, LOOP_K = 1e-6, 1e-4, 0.8, 32
+# The trainer phase: the HAND_GAUSSIAN default at full width, the cadence
+# cut so that every event fires in TRAINER_STEPS steps.
+TRAINER_CAPACITY, TRAINER_STEPS, TRAINER_RESUME_STEPS = 131072, 400, 20
+TRAINER_LPIPS_FROM, TRAINER_DIR = 100, os.path.join("chiprun_out", "trainer")
+# HAND_GAUSSIAN's sample_size, 10,000 a bone, draws 1.5 x 10,000 x 13 =
+# 195,000 init points on the 13-bone procedural skeleton, more than the
+# capacity, and both packages refuse that (the JAX init asserts): 6,720 a
+# bone (131,040 points) is the most that fits.
+TRAINER_SAMPLE_SIZE = 6720
+TRAINER_ARGS = [
+    "--config-name", "HAND_GAUSSIAN", f"capacity={TRAINER_CAPACITY}",
+    "skin_init=mano_init_voxel", "dataset.grid_res=128",
+    "dataset.width=512", "dataset.height=512", "dataset.num_cameras=8",
+    "dataset.num_frames=4", f"dataset.sample_size={TRAINER_SAMPLE_SIZE}",
+    f"trainer.max_steps={TRAINER_STEPS}",
+    "trainer.val_every=200", "trainer.checkpoint_every=200",
+    "model.densify_from_step=100", "model.densification_interval=100",
+    "model.opacity_reset_interval=250", "model.remove_outliers_step=300",
+    f"model.start_lpips_iter={TRAINER_LPIPS_FROM}",
+    "loss.lpips_random_in_loss=true", "loss.lpips_gt_cache_mb=8192",
+    f"trainer.output_dir={TRAINER_DIR}", "trainer.exp_name=hand",
+]
 REPLACES = {
     "composite_fwd": "manus_tpu/ops/rasterizer/pallas_backend.py:105",
     "composite_bwd": "manus_tpu/ops/rasterizer/pallas_backend.py:258",
@@ -1155,8 +1199,12 @@ def flagship_phase(dev):
     check(top <= 0.01 * (1 + 1e-5), f"opacity reset left {top}")
 
     pts, valid = after.model.params.xyz, after.model.active
+    torch.cuda.synchronize()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
     out_ms = cuda_ms(lambda: outliers.outlier_mask(
         pts, valid, prob=LOOP_PROB, k=LOOP_K), 2)
+    loop_mb = torch.cuda.max_memory_allocated() / 2**20 - base_mb
     mask = outliers.outlier_mask(pts, valid, prob=LOOP_PROB, k=LOOP_K)
     prob = outliers.outlier_probability(pts, valid, k=LOOP_K).cpu()
     t0 = time.perf_counter()
@@ -1167,7 +1215,8 @@ def flagship_phase(dev):
     near = (prob_cpu - LOOP_PROB).abs() <= LOOP_ATOL
     pruned, _, n_out = densify_mod.prune_by_mask(after.model, after.opt, mask)
     print(f"outliers: LoOP k={LOOP_K} over {cap} slots ({int(valid.sum())} "
-          f"live): {out_ms:.3f} ms on the card (mean of 2, CUDA events), "
+          f"live): {out_ms:.3f} ms on the card (mean of 2, CUDA events; "
+          f"{loop_mb:.1f} MiB of device memory at its peak), "
           f"{cpu_s:.1f} s on the CPU; {int(mask.sum())} outliers, "
           f"prune_by_mask removed {int(n_out)}, {int(pruned.active.sum())} "
           f"live; against the CPU: probabilities max abs err {err:.3e} "
@@ -1176,6 +1225,160 @@ def flagship_phase(dev):
     check(err <= LOOP_ATOL, f"LoOP probabilities differ by {err}")
     check(bool((~diff | near).all()), "outlier masks differ from the CPU's")
     return ms
+
+
+class Tee:
+    """Standard output that also keeps its lines (the trainer's log)."""
+
+    def __init__(self, out):
+        self.out, self.lines, self._part = out, [], ""
+
+    def write(self, text):
+        self.out.write(text)
+        self._part += text
+        *done, self._part = self._part.split("\n")
+        self.lines.extend(done)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _run_cli(argv):
+    """cli.main(argv) with every kernel count set to 0 just before and
+    read just after. Returns (trainer, {kernel: launches}, log lines,
+    peak device MiB, wall s)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    tee = Tee(sys.stdout)
+    sys.stdout = tee
+    t0 = time.perf_counter()
+    try:
+        tr = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        sys.stdout = tee.out
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    return (tr, launches, tee.lines,
+            torch.cuda.max_memory_allocated() / 2**20, wall)
+
+
+def _csv_rows(path):
+    with open(path) as f:
+        rows = [line.strip().split(",") for line in f if line.strip()]
+    return rows[0], rows[1:]
+
+
+def trainer_phase(bare_ms):
+    """The training CLI on the card (docstring phase 9). bare_ms: the
+    flagship phase's median bare step, from the same call. Returns the
+    run's {kernel: launches}."""
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    tr, launches, lines, peak_mb, wall = _run_cli(TRAINER_ARGS)
+    run_dir = tr.out_dir
+    t = tr.timings
+    check(tr.cfg.raster.backend == "cuda",
+          f"trainer: raster backend {tr.cfg.raster.backend!r}")
+    check(tr.device.type == "cuda", f"trainer: ran on {tr.device}")
+    ds = tr.dataset
+    n_img = ds.num_frames * ds.num_views
+    step_ms = [x * 1e3 for x in t["step_s"]]
+    plain = statistics.median(step_ms[WARMUP:TRAINER_LPIPS_FROM])
+    with_lpips = statistics.median(step_ms[TRAINER_LPIPS_FROM + WARMUP:])
+    print(f"trainer: {TRAINER_STEPS} steps through python -m "
+          f"manus_tpu_torch.main in {wall:.1f} s, {TRAINER_CAPACITY} "
+          f"gaussians, {ds.width}x{ds.height}, {n_img} train images "
+          f"({ds.num_frames} frames x {ds.num_views} cameras); fit loop "
+          f"median {plain:.3f} ms/step before step {TRAINER_LPIPS_FROM} "
+          f"and {with_lpips:.3f} with LPIPS (min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}), against the flagship bare step's "
+          f"{bare_ms:.3f}; peak {peak_mb:.1f} MiB")
+    header, rows = _csv_rows(os.path.join(run_dir, "logs",
+                                          "train_metrics.csv"))
+    loss = [float(r[1]) for r in rows]
+    print(f"trainer: train_metrics.csv {header}: loss {loss[0]:.6f} at step "
+          f"{rows[0][0]} -> {loss[-1]:.6f} at step {rows[-1][0]}, "
+          f"iters_per_s {rows[-1][4]} (last row), num_active "
+          f"{rows[0][3]} -> {rows[-1][3]}")
+    check(all(math.isfinite(x) for x in loss), "trainer: non-finite loss")
+    check(loss[-1] < loss[0], "trainer: the loss did not fall")
+    vheader, vrows = _csv_rows(os.path.join(run_dir, "results",
+                                            "val_results.csv"))
+    for r in vrows:
+        print(f"trainer: val step {r[1]}: psnr {float(r[2]):.4f} ssim "
+              f"{float(r[3]):.4f} lpips {float(r[4]):.6f} rendering_time "
+              f"{float(r[5]) * 1e3:.2f} ms pair_overflow {r[6]} ({r[7]})")
+    check([r[1] for r in vrows] == ["200", "400"],
+          f"trainer: validations at {[r[1] for r in vrows]}")
+    events = [ln for ln in lines if ln.startswith(("[densify]", "[reset]",
+                                                   "[outliers]"))]
+    for ln in events:
+        print(f"trainer event: {ln}")
+    check(any(ln.startswith("[reset] step 250") for ln in events),
+          "trainer: no opacity reset at 250")
+    check(sum(ln.startswith("[densify] step") for ln in events) == 2,
+          "trainer: densify events are not at 200 and 300")
+    print(f"trainer: caches: images {t['image_cache_mb']:.1f} MiB, gt LPIPS "
+          f"features {t['lpips_cache_mb']:.1f} MiB; validations "
+          f"{[round(x * 1e3, 1) for x in t['val_s']]} ms; checkpoint saves "
+          f"{[round(x * 1e3, 1) for x in t['save_s']]} ms, "
+          f"{[round(x, 1) for x in t['save_mb']]} MiB each")
+    check(t["lpips_cache_mb"] > 0, "trainer: the gt LPIPS cache was skipped")
+
+    # the last checkpoint is the state fit() ended with
+    last = max(p for p in os.listdir(tr.ckpt_dir) if p.endswith(".npz"))
+    back, _ = ckpt_mod.load_checkpoint(os.path.join(tr.ckpt_dir, last),
+                                       tr.state)
+    want = ckpt_mod.state_to_arrays(tr.state)
+    got = ckpt_mod.state_to_arrays(back)
+    want["gen"], got["gen"] = (x.gen.get_state().numpy()
+                               for x in (tr.state, back))
+    same = [k for k in want if np.array_equal(got[k], want[k])
+            and got[k].dtype == want[k].dtype]
+    print(f"trainer: {last} loads back: {len(same)} of {len(want)} leaves "
+          f"equal")
+    check(len(same) == len(want) and set(got) == set(want),
+          f"trainer: {last} does not load back equal")
+
+    n_lpips = TRAINER_STEPS - TRAINER_LPIPS_FROM
+    # the gt renders cover every frame, the val frames too
+    n_gt = tr.cfg.dataset.num_frames * tr.cfg.dataset.num_cameras
+    n_eval = launches["composite_fwd"] - TRAINER_STEPS - n_gt
+    print(f"trainer: launches over the run {launches} (composite forward: "
+          f"{TRAINER_STEPS} steps, {n_gt} gt renders, {n_eval} eval "
+          f"renders; LPIPS kernels: {n_lpips} steps from step "
+          f"{TRAINER_LPIPS_FROM}, and {n_img} gt feature images)")
+    want_n = {"composite_bwd": TRAINER_STEPS,
+              "conv3x3_layout": 13 * (n_lpips + n_img),
+              "conv3x3_layout_dx": 13 * n_lpips,
+              "lpips_head_fwd": 5 * n_lpips, "lpips_head_bwd": 5 * n_lpips,
+              "conv3x3": 0}
+    for name, n in want_n.items():
+        check(launches[name] == n,
+              f"trainer: {name} launched {launches[name]} times, not {n}")
+    check(n_eval >= 4, f"trainer: {n_eval} eval renders")
+    del tr, back
+
+    rtr, rlaunches, rlines, rpeak, rwall = _run_cli([
+        "--config-name", run_dir, f"trainer.max_steps={TRAINER_RESUME_STEPS}",
+        "checkpoint=best"])
+    resumed = [ln for ln in rlines if ln.startswith("resumed from")]
+    rms = statistics.median(x * 1e3 for x in rtr.timings["step_s"][WARMUP:])
+    print(f"trainer resume: {resumed}; {TRAINER_RESUME_STEPS} steps in "
+          f"{rwall:.1f} s (dataset, grid and caches rebuilt), median "
+          f"{rms:.3f} ms/step with LPIPS, state step {rtr.state.step}, peak "
+          f"{rpeak:.1f} MiB, launches {rlaunches}")
+    check(len(resumed) == 1 and rtr.state.step > TRAINER_RESUME_STEPS,
+          "trainer: the resume did not start from a checkpoint")
+    check(rlaunches["lpips_head_bwd"] == 5 * TRAINER_RESUME_STEPS,
+          "trainer resume: LPIPS is not on from the first step")
+    del rtr
+    for sub in ("checkpoints", os.path.join("results", "val_results",
+                                            "gaussians")):
+        shutil.rmtree(os.path.join(run_dir, sub), ignore_errors=True)
+    return launches
 
 
 def main() -> int:
@@ -1236,6 +1439,10 @@ def main() -> int:
     flagship_ms = flagship_phase(dev)
     print(f"flagship step: median {flagship_ms:.3f} ms (the primary plain "
           f"step {plain_step_ms:.3f})")
+
+    # this slice's main path: the trainer; its counts go in the kernels
+    # line (the earlier paths' are on their own lines above)
+    launches.update(trainer_phase(flagship_ms))
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name],

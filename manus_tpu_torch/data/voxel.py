@@ -20,10 +20,12 @@ import numpy as np
 import torch
 
 from manus_tpu_torch.config import ExperimentConfig
+from manus_tpu_torch.data import REFERENCE_DATA
 from manus_tpu_torch.ops.knn import fp32_matmul, knn_indices, nearest_neighbor
 from manus_tpu_torch.train.workloads import VoxelGrid
 from manus_tpu_torch.utils.device import resolve_device
 
+MANO_REST = os.path.join(REFERENCE_DATA, "mano", "mano_rest.pkl")
 # MANO's 16 weight columns -> the 20-bone rig's order (reference
 # train_utils.py:68)
 MANO_TO_OURS = [13, 14, 14, 15, 0, 1, 2, 3, 0, 4, 5, 6, 0, 10, 11, 12, 0, 7, 8, 9]
@@ -149,3 +151,16 @@ def mano_skin_weights_20(mano: dict) -> np.ndarray:
     rescaled to stay a convex blend."""
     w = np.asarray(mano["weights"], np.float32)[:, MANO_TO_OURS]
     return w / np.maximum(w.sum(axis=1, keepdims=True), 1e-8)
+
+
+def visualize_skin_weights(skin_weights: np.ndarray,
+                           seed: int = 0) -> np.ndarray:
+    """[N, B] weights -> [N, 3] colours: a distinct colour per bone from a
+    seeded palette, blended by the weights (the reference's
+    extra.py:172-182), for the validation PLY dumps."""
+    rng = np.random.RandomState(seed)
+    b = skin_weights.shape[1]
+    palette = rng.uniform(0.1, 1.0, (b, 3)).astype(np.float32)
+    w = np.asarray(skin_weights, np.float32)
+    w = w / np.maximum(w.sum(1, keepdims=True), 1e-8)
+    return w @ palette

@@ -1,11 +1,15 @@
-"""The VGG16-LPIPS perceptual distance on the layout conv chain.
+"""The LPIPS perceptual distance: the VGG16 loss on the layout conv chain,
+and the AlexNet metric.
 
-Counterpart of the JAX package's train/lpips.py, VGG16 path: the
-backbone's 13 3x3 convs run as the layout chain of ops/conv.py (bf16
-features, fp32 accumulation; the JAX package's lpips_conv="pallas"
-engine), features are taken after the ReLU of each of the 5 stages,
-unit-normalised along channels, squared differences weighted by the 1x1
-heads `lin{k}_w`, averaged over pixels and summed over stages.
+Counterpart of the JAX package's train/lpips.py. Features are taken after
+the ReLU of each of the backbone's 5 stages, unit-normalised along
+channels, squared differences weighted by the 1x1 heads `lin{k}_w`,
+averaged over pixels and summed over stages. VGG16, the training loss,
+runs its 13 3x3 convs as the layout chain of ops/conv.py (bf16 features,
+fp32 accumulation; the JAX package's lpips_conv="pallas" engine).
+AlexNet, the validation metric (the reference evaluates with AlexNet and
+trains with VGG, loss_utils.py:17-19), runs fp32 torch convs and an fp32
+head, as the JAX package runs it on XLA convs.
 
 Params are a dict with the JAX package's keys and layouts:
 conv{stage}_{layer}_w [3, 3, Ci, Co] (HWIO), conv{stage}_{layer}_b [Co],
@@ -19,13 +23,16 @@ from the same seed.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from manus_tpu_torch.ops.conv import (
+    HEAD_EPS,
     ConvWeights,
     StageLayout,
     build_layout,
@@ -50,6 +57,21 @@ VGG_PLAN = dict(
     pool=(2, 2),
     pool_before=(1, 2, 3, 4),
 )
+
+# AlexNet (torchvision features[0..11], the slices lpips.alexnet uses):
+# conv1 11x11/4 p2 -> pool3/2 -> conv2 5x5 p2 -> pool3/2 -> conv3..5 3x3 p1
+ALEX_PLAN = dict(
+    stages=[
+        [(64, 11, 4, 2)],
+        [(192, 5, 1, 2)],
+        [(384, 3, 1, 1)],
+        [(256, 3, 1, 1)],
+        [(256, 3, 1, 1)],
+    ],
+    pool=(3, 2),
+    pool_before=(1, 2),
+)
+PLANS = {"vgg": VGG_PLAN, "alex": ALEX_PLAN}
 
 SHIFT = np.array([-0.030, -0.088, -0.188], np.float32)
 SCALE = np.array([0.458, 0.448, 0.450], np.float32)
@@ -79,16 +101,14 @@ def resolve_lpips_engine(lpips_conv: str, params) -> str:
 
 def random_lpips_params(seed: int = 0, arch: str = "vgg",
                         device=None) -> dict:
-    """Seeded He-init VGG16, the random-feature fallback: the same numpy
-    draws in the same order as the JAX package's, so the same seed gives
-    the same float32 weights."""
-    if arch != "vgg":
-        raise NotImplementedError(f"LPIPS arch {arch!r} is not ported")
+    """Seeded He-init VGG16 or AlexNet, the random-feature fallback: the
+    same numpy draws in the same order as the JAX package's, so the same
+    seed gives the same float32 weights."""
     device = resolve_device(device)
     rng = np.random.RandomState(seed)
     params = {}
     c_in = 3
-    for si, stage in enumerate(VGG_PLAN["stages"]):
+    for si, stage in enumerate(PLANS[arch]["stages"]):
         for li, (c_out, k, _, _) in enumerate(stage):
             fan = k * k * c_in
             w = rng.normal(0, np.sqrt(2.0 / fan), (k, k, c_in, c_out))
@@ -236,10 +256,63 @@ def _lpips_head_layout(params, f1: list, f2: list):
     return total
 
 
+@contextlib.contextmanager
+def _fp32_conv():
+    """Float32 convs on CUDA in full precision (no TF32) inside."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def backbone_features(params: dict, x, arch: str) -> list:
+    """The 5 post-ReLU stage outputs ([N, h, w, C] fp32) of the chosen
+    backbone for x ([N, H, W, 3] in [-1, 1]), with fp32 torch convs and
+    VALID max pools (the JAX package's XLA path)."""
+    plan = PLANS[arch]
+    shift = torch.as_tensor(SHIFT, device=x.device)
+    scale = torch.as_tensor(SCALE, device=x.device)
+    x = ((x - shift) / scale).permute(0, 3, 1, 2)
+    pk, ps = plan["pool"]
+    feats = []
+    with _fp32_conv():
+        for si, stage in enumerate(plan["stages"]):
+            if si in plan["pool_before"]:
+                x = F.max_pool2d(x, pk, ps)
+            for li, (_, _, stride, pad) in enumerate(stage):
+                w = params[f"conv{si}_{li}_w"].permute(3, 2, 0, 1)
+                x = torch.relu(F.conv2d(x, w, params[f"conv{si}_{li}_b"],
+                                        stride=stride, padding=pad))
+            feats.append(x.permute(0, 2, 3, 1))
+    return feats
+
+
+def _lpips_head(params: dict, f1: list, f2: list):
+    """Unit-normalise the stage features, squared difference, the 1x1
+    heads, mean over pixels, sum over stages, in fp32 (the JAX package's
+    _lpips_head)."""
+    total = None
+    for k, (a, b) in enumerate(zip(f1, f2)):
+        a, b = a.float(), b.float()
+        na = a / (torch.linalg.norm(a, dim=-1, keepdim=True) + HEAD_EPS)
+        nb = b / (torch.linalg.norm(b, dim=-1, keepdim=True) + HEAD_EPS)
+        npix = float(np.prod(a.shape[:-1]))
+        d = ((na - nb) ** 2 * params[f"lin{k}_w"]).sum() / npix
+        total = d if total is None else total + d
+    return total
+
+
 def lpips_distance(params, img1, img2):
-    """LPIPS distance of two [H, W, 3] images in [0, 1] on the layout
-    chain (the JAX package's lpips_distance_pallas): an fp32 scalar,
-    differentiable in both images."""
+    """LPIPS distance of two [H, W, 3] images in [0, 1], an fp32 scalar
+    differentiable in both, with the backbone the params encode: VGG16 on
+    the layout chain (the JAX package's lpips_distance_pallas), AlexNet on
+    fp32 torch convs (its lpips_distance)."""
+    if infer_arch(params) == "alex":
+        f1 = backbone_features(params, img1[None] * 2.0 - 1.0, "alex")
+        f2 = backbone_features(params, img2[None] * 2.0 - 1.0, "alex")
+        return _lpips_head(params, f1, f2)
     params = pack_lpips_params(params)
     f1 = vgg16_features(params, img1 * 2.0 - 1.0)
     f2 = vgg16_features(params, img2 * 2.0 - 1.0)

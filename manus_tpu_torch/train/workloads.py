@@ -308,3 +308,46 @@ def make_densify_step(cfg: ExperimentConfig, extent: float):
         return state._replace(model=model, opt=opt)
 
     return densify_step, opacity_reset_step
+
+
+def make_eval_step(cfg: ExperimentConfig, articulated: bool,
+                   voxel_grid: Optional[VoxelGrid] = None,
+                   lpips_params: Optional[dict] = None):
+    """One view's render and metrics for validation, with no gradient.
+
+    eval_step(model, cam, rgb [H,W,3], mask [H,W,1], bg [3], bone_tf=None)
+    -> dict of render [H,W,3], psnr, ssim and lpips (of the masked render
+    against the masked gt; lpips 0 without lpips_params, the AlexNet or
+    VGG16 params of train/lpips.py), posed_xyz [N,3] for the PLY dumps,
+    and the pair overflow counts. `articulated` is implied by bone_tf.
+    """
+    del articulated
+    opts = cfg.model
+    raster_cfg = make_raster_config(cfg)
+
+    def eval_step(model: GaussianModel, cam, rgb, mask, bg, bone_tf=None):
+        with torch.no_grad():
+            skin_w = resolve_skin_weights(model, voxel_grid)
+            posed_xyz, posed_cov, tf = forward_gaussians(
+                model.params, model.active, skin_w, bone_tf, opts)
+            out = render_gaussians(
+                posed_xyz, posed_cov, model.params.xyz,
+                get_features(model.params), get_opacity(model.params), cam,
+                bg, sh_degree=opts.sh_degree, tf=tf, active=model.active,
+                config=raster_cfg,
+            )
+            render = out.render * mask
+            gt = rgb * mask
+            metrics = dict(
+                render=out.render,
+                psnr=loss_mod.psnr(render, gt),
+                ssim=loss_mod.ssim(render, gt),
+                lpips=render.new_zeros(()) if lpips_params is None
+                else lpips_mod.lpips_distance(lpips_params, render, gt),
+                posed_xyz=posed_xyz,
+                pair_overflow=out.overflow,
+                pair_overflow_far=out.overflow_far,
+            )
+        return metrics
+
+    return eval_step

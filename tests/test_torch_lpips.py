@@ -54,17 +54,55 @@ def _bf16_order(x):
     return np.where(bits < 0, -mag, mag)
 
 
-def _assert_bf16_close(got, want, what, share=ULP_SHARE):
+def _assert_bf16_close(got, want, what, share=ULP_SHARE, exact=None):
+    """got (the port) and want (JAX) agree exactly or by one bf16 ulp, on
+    all but `share` of the values by none, and by more only near a ReLU's
+    0. With `exact` (a float64 value of the same formula on the same
+    inputs), a value where they differ by more than one ulp passes when
+    the port is no farther from it than JAX is, plus one ulp: where the
+    formula cancels (the head's d_normed), two fp32 orders of summation
+    can land two ulps apart, and the exact value decides which is off."""
     got, want = _np(got), _np(want)
     assert got.shape == want.shape, what
     ulps = np.abs(_bf16_order(got) - _bf16_order(want))
     near_zero = (np.minimum(np.abs(got), np.abs(want)) == 0) & (
         np.maximum(np.abs(got), np.abs(want)) <= 1e-2 * np.abs(want).max())
-    assert (ulps[~near_zero] <= 1).all(), (
-        f"{what}: {int((ulps[~near_zero] > 1).sum())} values beyond one ulp, "
+    beyond = (ulps > 1) & ~near_zero
+    if exact is not None:
+        assert exact.shape == got.shape, what
+        ulp = np.spacing(np.abs(exact).astype(np.float32)) * 2.0 ** 16
+        port_nearer = (np.abs(got - exact)
+                       <= np.abs(want.astype(np.float64) - exact) + ulp)
+        assert port_nearer[beyond].all(), (
+            f"{what}: {int((beyond & ~port_nearer).sum())} values beyond one "
+            f"ulp of JAX's and farther than JAX's from the float64 value")
+        beyond &= ~port_nearer
+    assert not beyond.any(), (
+        f"{what}: {int(beyond.sum())} values beyond one ulp, "
         f"max {ulps.max()}")
     frac = float((ulps > 0).mean())
     assert frac <= share, f"{what}: {frac:.4f} of the values differ"
+
+
+def _head_f64(a, b, lin, ct):
+    """The head and its VJP in float64 from the same (bf16-valued) rows:
+    _head_bwd_kernel's formula (manus_tpu/ops/conv_pallas.py), with
+    d_normed(x, r, g) = g/(r+eps) - x (x.g) / (r (r+eps)^2) and
+    g = 2 lin (na - nb). Returns (value, da, db)."""
+    a, b = (np.asarray(_np(x), np.float64) for x in (a, b))
+    lin = np.asarray(lin, np.float64).reshape(1, -1)
+    ra = np.sqrt((a * a).sum(1, keepdims=True))
+    rb = np.sqrt((b * b).sum(1, keepdims=True))
+    na, nb = a / (ra + 1e-10), b / (rb + 1e-10)
+    g = 2.0 * lin * (na - nb)
+
+    def d_normed(x, r):
+        dot = (x * g).sum(1, keepdims=True)
+        safe_r = np.where(r > 0, r, 1.0)
+        return g / (r + 1e-10) - x * (dot / (safe_r * (r + 1e-10) ** 2))
+
+    value = float((lin * (na - nb) ** 2).sum())
+    return value, ct * d_normed(a, ra), -ct * d_normed(b, rb)
 
 
 def _conv_case(h, w, ci, co, seed):
@@ -163,7 +201,9 @@ def test_conv3x3_layout_dx_matches_jax(h, w, ci, co):
 def test_head_stage_matches_jax(rows, c):
     """Kernels 5 and 6's plain versions against head_stage_layout, with
     all-zero rows in both features and in one only. Value: 1e-6 relative
-    (fp32 sums in another order). Gradients: bf16, exact or one ulp."""
+    (fp32 sums in another order). Gradients: bf16, exact or one ulp, and
+    beyond one ulp only where the port is no farther than JAX from the
+    float64 head (_head_f64), plus one ulp."""
     rng = np.random.RandomState(rows + c)
     a = rng.normal(0, 1, (rows, c)).astype(np.float32)
     b = rng.normal(0, 1, (rows, c)).astype(np.float32)
@@ -186,8 +226,9 @@ def test_head_stage_matches_jax(rows, c):
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
     assert da.dtype == db.dtype == torch.bfloat16
-    _assert_bf16_close(da, want_da, "da")
-    _assert_bf16_close(db, want_db, "db")
+    _, exact_da, exact_db = _head_f64(a, b, lin, ct)
+    _assert_bf16_close(da, want_da, "da", exact=exact_da)
+    _assert_bf16_close(db, want_db, "db", exact=exact_db)
 
 
 # (h, w, c): head stages on real layouts: 64 channels, which the JAX
@@ -220,7 +261,11 @@ def test_head_stage_span_matches_jax(h, w, c, need_db):
     """head_stage_layout over the layout's pixel span (the train step's
     form: with L, and da alone where b is detached) against the JAX head
     over every row of its layout. Tolerances as in
-    test_head_stage_matches_jax."""
+    test_head_stage_matches_jax. The float64 head is what decides at
+    32x32x64: one db entry out of 1024x64 lies 2 ulps from JAX's (port
+    1.05160e-11, JAX 1.04023e-11, float64 1.04870e-11), where d_normed's
+    two terms cancel and the fp32 sums' order decides the rounding; the
+    port is the nearer of the two."""
     ja, jb, ta, tb, lin, L = _head_layout_case(h, w, c)
     jlin = jnp.zeros((1, ja.shape[1]), jnp.float32).at[0, :c].set(lin)
     ct = 1.7
@@ -233,9 +278,11 @@ def test_head_stage_span_matches_jax(h, w, c, need_db):
     got = tconv.head_stage_layout(ta, tb, torch.tensor(lin), L)
     grads = torch.autograd.grad(got * ct, [ta, tb] if need_db else [ta])
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
-    _assert_bf16_close(grads[0], _np(want_da)[:, :c], "da")
+    _, exact_da, exact_db = _head_f64(ta, tb, lin, ct)
+    _assert_bf16_close(grads[0], _np(want_da)[:, :c], "da", exact=exact_da)
     if need_db:
-        _assert_bf16_close(grads[1], _np(want_db)[:, :c], "db")
+        _assert_bf16_close(grads[1], _np(want_db)[:, :c], "db",
+                           exact=exact_db)
 
 
 @pytest.mark.parametrize("h,w,c", HEAD_STAGES, ids=HEAD_STAGE_IDS)
@@ -350,18 +397,23 @@ def test_conv3x3_image_linear_matches_jax(h, w, ci, co):
 
 
 def test_random_lpips_params_bit_equal_and_convert():
-    want = jlpips.random_lpips_params(0, "vgg")
-    got = tlpips.random_lpips_params(0, "vgg", device="cpu")
-    assert list(got) == list(want)
-    for k in want:
-        assert got[k].dtype == torch.float32
-        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), k)
-    back = lpips_params_from_numpy(
-        {k: np.asarray(v) for k, v in want.items()}, "cpu")
-    for k, v in lpips_params_to_numpy(back).items():
-        np.testing.assert_array_equal(v, np.asarray(want[k]), k)
-    with pytest.raises(NotImplementedError):
-        tlpips.random_lpips_params(0, "alex", device="cpu")
+    """VGG16 and, since the AlexNet metric is ported, AlexNet: the same
+    draws as the JAX package's; an arch of neither raises."""
+    for arch in ("vgg", "alex"):
+        want = jlpips.random_lpips_params(0, arch)
+        got = tlpips.random_lpips_params(0, arch, device="cpu")
+        assert list(got) == list(want)
+        assert tlpips.infer_arch(got) == jlpips.infer_arch(want) == arch
+        for k in want:
+            assert got[k].dtype == torch.float32
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                          k)
+        back = lpips_params_from_numpy(
+            {k: np.asarray(v) for k, v in want.items()}, "cpu")
+        for k, v in lpips_params_to_numpy(back).items():
+            np.testing.assert_array_equal(v, np.asarray(want[k]), k)
+    with pytest.raises(KeyError):
+        tlpips.random_lpips_params(0, "squeeze", device="cpu")
 
 
 def test_load_lpips_params_reads_the_converter_npz(tmp_path):

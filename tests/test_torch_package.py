@@ -37,6 +37,10 @@ def test_importing_the_port_loads_no_jax():
         "import chip_smoke\n"
         "from manus_tpu_torch.train.workloads import make_train_step\n"
         "from manus_tpu_torch.ops.rasterizer.api import render_gaussians\n"
+        "import manus_tpu_torch.main\n"
+        "import manus_tpu_torch.train.checkpoint\n"
+        "import manus_tpu_torch.data.prefetch\n"
+        "import manus_tpu_torch.utils.io\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'manus_tpu')]\n"
         "assert not bad, bad\n"
     )
