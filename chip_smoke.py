@@ -1,4 +1,5 @@
-"""Run the PyTorch port of the HAND_GAUSSIAN training step on one NVIDIA card.
+"""Run the PyTorch port on one NVIDIA card: the HAND_GAUSSIAN training step
+and its kernels, the training CLI, and the contact stage (COMPOSITE).
 
     python3 chip_smoke.py
 
@@ -81,7 +82,35 @@ Phases, each of which exits non-zero on failure:
      layer or stage and LPIPS step); then the run is resumed from its
      directory with checkpoint=best for TRAINER_RESUME_STEPS steps. The
      run's checkpoints and PLYs (about 0.8 GB) are deleted afterwards;
-     its config, CSVs and images stay.
+     its config, CSVs and images stay;
+ 10. composite: the contact stage through the CLI at full width. An
+     OBJ_GAUSSIAN object trained through the CLI (131,072 slots, 512x512,
+     20 cameras, 65,536 init points, OBJECT_STEPS steps with the densify
+     event at OBJECT_DENSIFY_AT only), its checkpoint moved to touch phase
+     9's hand where camera 0 sees the contact (place_object: the
+     synthetic object is a hollow shell about the hand, which touches
+     nothing as trained); then COMPOSITE at 512x512 over
+     COMPOSITE_FRAMES frames of COMPOSITE_VIEWS cameras in each
+     contact_render_type (results, gt_eval, then acc_gt_eval on the
+     gt_eval run's contacts, nocs) and once with optimize_hand and
+     FINETUNE_STEPS fine-tune steps. Checks: acc_contacts.npy finite in
+     [0, frames], a PNG a frame, composite_fwd launched once a gt render,
+     panel and step and composite_bwd once a step; frame 0's contact
+     maps both ways against float64 on the CPU on CONTACT_ROWS rows; a
+     results frame through the kernels against the plain composite;
+     both composite kernels against their plain version on the full
+     scene's payload of the fine-tune's first batch (the backward's
+     shapes on this path); hand points in contact; the fine-tune lowers
+     the composite loss over the scene's images; the MANO baseline
+     (mano_baseline_contacts on an icosphere across the object's wall,
+     rendered per eval frame): each frame's contacts and the accumulated
+     map against the CPU's within the conditioning bound per vertex;
+     trainer.mode=eval_contacts against ground truth made from
+     the acc_gt_eval frames that show contact: "ours" scores IoU = F1 =
+     1 and the table has the mano column. Times: ms a frame in each mode,
+     one contact search, fine-tune ms a step, eval_contacts seconds,
+     peak MiB a run. Phase 9's and 10's checkpoints, the frames but the
+     first of each run and the baseline's meshes are deleted afterwards.
 
 The last lines are a {"kernels": [...]} JSON line, the card's name and
 power limit from nvidia-smi, and {"ok": true, "device": {...}}.
@@ -102,7 +131,11 @@ import time
 import numpy as np
 import torch
 
-from manus_tpu_torch.config import hand_config
+from manus_tpu_torch.config import (
+    apply_overrides,
+    composite_config,
+    hand_config,
+)
 from manus_tpu_torch.data.synthetic import (
     hemisphere_cameras,
     perturb_model,
@@ -112,6 +145,7 @@ from manus_tpu_torch.data.synthetic import (
 from manus_tpu_torch.data.voxel import make_voxel_grid
 from manus_tpu_torch.models import densify as densify_mod
 from manus_tpu_torch.models.gaussians import (
+    GaussianOpts,
     get_features,
     get_opacity,
     get_scaling,
@@ -119,6 +153,7 @@ from manus_tpu_torch.models.gaussians import (
 )
 from manus_tpu_torch.ops import conv as conv_mod
 from manus_tpu_torch.ops import outliers
+from manus_tpu_torch.ops.contacts import CONTACT_THRESHOLD, contact_map
 from manus_tpu_torch.ops.rasterizer import composite
 from manus_tpu_torch.ops.rasterizer.api import (
     RasterConfig,
@@ -132,6 +167,15 @@ from manus_tpu_torch.ops.skinning import bone_deformation_transforms
 from manus_tpu_torch import main as cli
 from manus_tpu_torch.train import checkpoint as ckpt_mod
 from manus_tpu_torch.train import lpips as lpips_mod
+from manus_tpu_torch.train.baselines import (
+    mano_baseline_contacts,
+    subdivide_mesh,
+)
+from manus_tpu_torch.train.composite import (
+    PANELS,
+    make_composite_finetune_step,
+    make_composite_render,
+)
 from manus_tpu_torch.train.workloads import (
     forward_gaussians,
     init_train_state,
@@ -142,6 +186,8 @@ from manus_tpu_torch.train.workloads import (
 )
 from manus_tpu_torch.utils import cuda_build
 from manus_tpu_torch.utils.camera import index_camera, stack_cameras
+from manus_tpu_torch.utils.colormap import apply_colormap
+from manus_tpu_torch.utils.io import dump_image, read_png
 
 CAPACITY, WIDTH, HEIGHT, VIEWS = 65536, 512, 512, 1
 STEPS, WARMUP = 20, 3
@@ -153,6 +199,9 @@ STEPS, WARMUP = 20, 3
 # d_payload per field, max abs error over the field's max abs value 1e-3
 # (each column is a sum over up to 256 pixels, with cancellation).
 FWD_ATOL, FLIP_SHARE, FLIP_ATOL, BWD_NORM_TOL = 1e-4, 1e-3, 0.0101, 1e-3
+# Pairs a pass of the plain backward takes at most: 2^18 pairs of 256
+# pixels at some twenty saved floats a pixel-pair is about 5 GiB.
+PLAIN_PAIRS = 1 << 18
 ORACLE_ATOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores.
@@ -225,6 +274,40 @@ TRAINER_ARGS = [
     "loss.lpips_random_in_loss=true", "loss.lpips_gt_cache_mb=8192",
     f"trainer.output_dir={TRAINER_DIR}", "trainer.exp_name=hand",
 ]
+# The composite phase: the trainer phase's hand and an OBJ_GAUSSIAN
+# object trained through the CLI at full width (131,072 slots, 512x512, 20
+# cameras) from 65,536 init points without the seg-phase mask prune (on
+# the synthetic scene it keeps 1,919 of them, a shell of points ~4 cm
+# apart whose contacts light no pixel of the contact panel), the densify
+# event at step OBJECT_DENSIFY_AT only (densify runs past
+# densify_from_step, every 100 steps); then COMPOSITE at 512x512 over COMPOSITE_FRAMES
+# frames of 8 cameras in each contact mode, and a fine-tune of the hand.
+OBJECT_STEPS, OBJECT_DENSIFY_AT = 250, 200
+COMPOSITE_DIR = os.path.join("chiprun_out", "composite")
+OBJECT_ARGS = [
+    "--config-name", "OBJ_GAUSSIAN", "capacity=131072", "dataset.width=512",
+    "dataset.height=512", "dataset.sample_size=65536",
+    "model.remove_seg_end=0",
+    f"trainer.max_steps={OBJECT_STEPS}", "trainer.val_every=0",
+    f"trainer.checkpoint_every={OBJECT_STEPS}",
+    f"model.densify_from_step={OBJECT_DENSIFY_AT - 100}",
+    f"trainer.output_dir={TRAINER_DIR}", "trainer.exp_name=obj",
+]
+COMPOSITE_SIZE, COMPOSITE_FRAMES, COMPOSITE_VIEWS, FINETUNE_STEPS = (
+    512, 8, 8, 100)
+# (experiment, contact_render_type, overrides): acc_gt_eval renders the
+# contacts the gt_eval run of its experiment saved
+COMPOSITE_RUNS = [
+    ("results", "results", []), ("eval", "gt_eval", []),
+    ("eval", "acc_gt_eval", []), ("nocs", "nocs", []),
+    ("finetune", "results", ["optimize_hand=true",
+                             f"finetune_steps={FINETUNE_STEPS}"]),
+]
+# query rows of each direction held to float64; the baseline mesh (an
+# icosphere of 162 vertices, 10,242 after the baseline's 3 subdivisions;
+# MANO's 778 give 49,000) and its posed frames (the CPU's contacts, its
+# reference, take ~2 s a frame)
+CONTACT_ROWS, BASELINE_LEVEL, BASELINE_FRAMES = 4096, 2, 4
 REPLACES = {
     "composite_fwd": "manus_tpu/ops/rasterizer/pallas_backend.py:105",
     "composite_bwd": "manus_tpu/ops/rasterizer/pallas_backend.py:258",
@@ -531,11 +614,11 @@ def composite_cold_ms(pay, bins, dev, reps=20):
     return fwd_ms, bwd_ms, len(copies)
 
 
-def composite_check(pay, bins, dev, tag):
-    """Both composite kernels against their plain version on one payload,
-    and two launches of each against each other (equal bits). Returns the
-    max abs errors and what the forward gave."""
-    ntx, nty = WIDTH // TILE, HEIGHT // TILE
+def composite_check(pay, bins, dev, tag, width=WIDTH, height=HEIGHT):
+    """Both composite kernels against their plain version on one payload
+    of a width x height image, and two launches of each against each other
+    (equal bits). Returns the max abs errors and what the forward gave."""
+    ntx, nty = width // TILE, height // TILE
     offs, cnts = bins.tile_offsets, bins.tile_counts
     n_tiles = ntx * nty
     fwd = composite.composite_fwd_cuda(pay, offs, cnts, ntx, nty)
@@ -560,20 +643,28 @@ def composite_check(pay, bins, dev, tag):
           f"two launches of the forward differ ({tag})")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    r_img = torch.rand(HEIGHT, WIDTH, 3, device=dev, generator=gen) - 0.5
+    r_img = torch.rand(height, width, 3, device=dev, generator=gen) - 0.5
     bg = torch.tensor([0.3, 0.2, 0.1], device=dev)
 
-    def d_payload(fn):
+    def d_payload(fn, counts):
         x = pay.detach().requires_grad_(True)
-        rgb, tfin = fn(x)
-        img, _ = composite.tiles_to_image(rgb, tfin, bg, ntx, nty, WIDTH,
-                                          HEIGHT)
+        rgb, tfin = fn(x, counts)
+        img, _ = composite.tiles_to_image(rgb, tfin, bg, ntx, nty, width,
+                                          height)
         (g,) = torch.autograd.grad((img * r_img).sum(), [x])
         return g
 
-    dk = d_payload(lambda x: composite.CompositeFn.apply(x, offs, cnts, ntx, nty))
-    dp = d_payload(lambda x: composite.composite_tiles_torch(
-        x, offs, cnts, ntx, nty))
+    dk = d_payload(lambda x, c: composite.CompositeFn.apply(
+        x, offs, c, ntx, nty), cnts)
+    # the plain backward's autograd graph grows with the pairs, so it runs
+    # over groups of whole tiles, a group those whose segments start in
+    # one span of PLAIN_PAIRS pairs: the segments are disjoint, a tile
+    # left out of a pass has no pairs there and gives no gradient, so the
+    # passes' gradients add up to the whole one exactly
+    group = (torch.cumsum(cnts, 0) - cnts) // PLAIN_PAIRS
+    dp = sum(d_payload(lambda x, c: composite.composite_tiles_torch(
+        x, offs, c, ntx, nty), torch.where(group == g, cnts, 0))
+        for g in group[cnts > 0].unique().tolist())
     bwd_err = (dk - dp).abs().max().item()
     norm = ((dk - dp).abs().amax(1) / dp.abs().amax(1).clamp(min=1e-30))[:NUM_LIVE]
     print(f"composite_bwd {tag}: max abs err {bwd_err:.3e}; per-field "
@@ -1274,7 +1365,8 @@ def _csv_rows(path):
 def trainer_phase(bare_ms):
     """The training CLI on the card (docstring phase 9). bare_ms: the
     flagship phase's median bare step, from the same call. Returns the
-    run's {kernel: launches}."""
+    run's {kernel: launches} and its run directory, whose checkpoints the
+    composite phase reads."""
     shutil.rmtree(TRAINER_DIR, ignore_errors=True)
     tr, launches, lines, peak_mb, wall = _run_cli(TRAINER_ARGS)
     run_dir = tr.out_dir
@@ -1375,10 +1467,481 @@ def trainer_phase(bare_ms):
     check(rlaunches["lpips_head_bwd"] == 5 * TRAINER_RESUME_STEPS,
           "trainer resume: LPIPS is not on from the first step")
     del rtr
-    for sub in ("checkpoints", os.path.join("results", "val_results",
-                                            "gaussians")):
-        shutil.rmtree(os.path.join(run_dir, sub), ignore_errors=True)
-    return launches
+    return launches, run_dir
+
+
+def _cli_args(*args):
+    return ["--config-name", "COMPOSITE", f"dataset.width={COMPOSITE_SIZE}",
+            f"dataset.height={COMPOSITE_SIZE}",
+            f"dataset.num_cameras={COMPOSITE_VIEWS}",
+            f"dataset.num_frames={COMPOSITE_FRAMES}",
+            f"trainer.output_dir={COMPOSITE_DIR}", *args]
+
+
+def _ours_dir(exp):
+    return os.path.join(COMPOSITE_DIR, "manus_tpu", "synthetic", exp,
+                        "results", "eval_results", "ours")
+
+
+def place_object(hand, vg, ds, obj_ckpt_dir, out_dir):
+    """The trained object's best checkpoint moved to touch the hand, as a
+    grasped object does, where camera 0 sees the contact.
+
+    The synthetic object is a hollow shell of radius 0.375-0.625 m about
+    the origin and the synthetic hand lies inside it, within 0.21 m of
+    the origin: as trained, no point of one is within 4 mm of the other.
+    The object moves along the direction u from the posed hand's centre
+    at frame 0 toward camera 0, in 5 mm steps from 10 cm inside to 15 cm
+    beyond the reach of its wall facing the hand (where the hand is in
+    reach). At each step the hand's contacts are accumulated over the
+    dataset's frames and rendered as acc_gt_eval's contact panel renders
+    frame 0 (grey, on the posed hand, from camera 0); the step that
+    lights the most pixels above 0.5 is taken, the nearer on a tie. The
+    searches at each step take only the object's points within the 4 mm
+    threshold of the box about the posed hand's (no other point can be a
+    hand point's neighbour within it). Writes the moved checkpoint into
+    out_dir; returns (shift, hand points in contact at frame 0, lit
+    pixels)."""
+    with np.load(ckpt_mod.find_best_checkpoint(obj_ckpt_dir)) as z:
+        obj = {k: z[k] for k in z.files}
+    dev = hand.active.device
+    xyz = torch.as_tensor(obj[".model/.params/.xyz"], device=dev)
+    live = xyz[torch.as_tensor(obj[".model/.active"], device=dev)]
+    p, opts = hand.params, GaussianOpts()
+    skin_w = resolve_skin_weights(hand, vg)
+    with torch.no_grad():
+        posed = [forward_gaussians(p, hand.active, skin_w,
+                                   cli._bone_tf(ds, f, vg), opts)
+                 for f in range(ds.num_frames)]
+    h_xyz, h_cov, h_tf = posed[0]
+    cam = index_camera(ds.cameras, 0)
+    centre = h_xyz[hand.active].mean(0)
+    u = cam.camera_center - centre
+    u = u / u.norm()
+    rel = live - live.mean(0)
+    # the object's wall facing the hand: its points within ~10 degrees of
+    # -u about its centre
+    cos = -(rel @ u) / rel.norm(dim=1)
+    wall = rel.norm(dim=1)[cos > 0.985].median().item()
+    bg = torch.zeros(3, device=dev)
+    h_live = torch.cat([x[hand.active] for x, _, _ in posed])
+    lo = h_live.amin(0) - CONTACT_THRESHOLD
+    hi = h_live.amax(0) + CONTACT_THRESHOLD
+
+    def touch(t):
+        o = rel + centre + u * t
+        o = o[((o >= lo) & (o <= hi)).all(1)]
+        if not len(o):
+            return 0, 0
+        d01 = [contact_map(x, o, hand.active)[0] for x, _, _ in posed]
+        gray = apply_colormap(torch.stack(d01).sum(0).clamp(0, 1), "gray")
+        with torch.no_grad():
+            img = render_gaussians(
+                h_xyz, h_cov, p.xyz, get_features(p), get_opacity(p), cam,
+                bg, colors_precomp=gray, tf=h_tf, active=hand.active).render
+        return int((d01[0] > 0).sum()), int((img.mean(-1) > 0.5).sum())
+
+    ts = [wall - 0.1 + 0.005 * k for k in range(51)]
+    found = [touch(t) for t in ts]
+    print("composite: object placements (m along u past its wall's reach, "
+          "hand points in contact at frame 0, lit pixels): "
+          f"{[(round(t - wall, 3), *x) for t, x in zip(ts, found) if x[0]]}")
+    t = ts[int(np.argmax([lit for _, lit in found]))]
+    shift = (centre + u * t - live.mean(0)).cpu().numpy()
+    obj[".model/.params/.xyz"] = (obj[".model/.params/.xyz"]
+                                  + shift).astype(np.float32)
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez(os.path.join(out_dir, "step000001-loss0.000000.npz"), **obj)
+    return (shift, *touch(t))
+
+
+def contact_reference(x, y, y_valid, d01, idx, rows):
+    """The card's contact map of queries x against y (d01, idx) on `rows`,
+    held to float64 on the CPU: |d - d_exact| <= min(sqrt(eps),
+    eps / (d + d_exact)) on the clipped distances, eps = 8 u (|x| +
+    max |y|)^2 (the float32 expansion's rounding,
+    tests/test_torch_colormap_contacts.py), and the index the exact
+    nearest wherever it beats the second by more than 2 eps in d^2.
+    Returns (largest error over its bound, share of rows with a unique
+    nearest, contacts among the rows)."""
+    xs = x[rows].double().cpu()
+    ys = y[y_valid].double().cpu()
+    valid_idx = torch.nonzero(y_valid).reshape(-1).cpu()
+    best, second, arg = [], [], []
+    for i in range(0, len(rows), 64):
+        d2 = ((xs[i:i + 64, None, :] - ys[None]) ** 2).sum(-1)
+        top = torch.topk(d2, 2, dim=1, largest=False)
+        best.append(top.values[:, 0])
+        second.append(top.values[:, 1])
+        arg.append(valid_idx[top.indices[:, 0]])
+    best, second, arg = torch.cat(best), torch.cat(second), torch.cat(arg)
+    eps = (8 * 2.0 ** -24 * (xs.norm(dim=1) + ys.norm(dim=1).max()) ** 2)
+    c = CONTACT_THRESHOLD
+    d_exact = best.sqrt().clamp(max=c)
+    d_card = c * (1.0 - d01[rows].double().cpu())
+    bound = torch.minimum(eps.sqrt(), eps / (d_card + d_exact).clamp(
+        min=1e-30)) + 1e-12
+    excess = ((d_card - d_exact).abs() / bound).max().item()
+    unique = second - best > 2 * eps
+    check(bool((idx[rows].cpu().long()[unique] == arg[unique]).all()),
+          "contact map: a nearest index differs from float64's")
+    return excess, unique.double().mean().item(), int((d01[rows] > 0).sum())
+
+
+def icosphere(level):
+    """A unit icosphere: the icosahedron, midpoint-subdivided `level`
+    times (train/baselines.subdivide_mesh) and projected on the sphere."""
+    t = (1.0 + 5 ** 0.5) / 2
+    v = np.array([[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+                  [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+                  [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]], np.float64)
+    f = np.array([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+                  [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+                  [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+                  [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]],
+                 np.int32)
+    for _ in range(level):
+        v, f = subdivide_mesh(v, f)
+        v = v / np.linalg.norm(v, axis=1, keepdims=True)
+    return v.astype(np.float32), f
+
+
+def finetune_payload(cfg, models, ds, dev):
+    """The composite payload of the fine-tune's first batch (frame and
+    view drawn as run_composite draws them) on `models`: the full scene,
+    hand and object, binned with the COMPOSITE raster options, as
+    make_composite_finetune_step renders it. Returns (payload, bins,
+    frame, view)."""
+    rng = np.random.RandomState(cfg.trainer.seed)
+    f = rng.randint(ds.num_frames)
+    v = rng.randint(ds.num_views)
+    hand, obj, vg = models
+    cam = index_camera(ds.cameras, v)
+    opts, r = GaussianOpts(), make_raster_config(cfg)
+    with torch.no_grad():
+        h_xyz, h_cov, h_tf = forward_gaussians(
+            hand.params, hand.active, resolve_skin_weights(hand, vg),
+            cli._bone_tf(ds, f, vg), opts)
+        o_xyz, o_cov, _ = forward_gaussians(obj.params, obj.active, None,
+                                            None, opts)
+        tf = torch.cat([h_tf, torch.eye(4, device=dev).expand(
+            o_xyz.shape[0], 4, 4)])
+        posed = torch.cat([h_xyz, o_xyz])
+        cano = torch.cat([hand.params.xyz, obj.params.xyz])
+        colors = calculate_colors_from_sh(
+            posed, torch.cat([get_features(hand.params),
+                              get_features(obj.params)]), cano, cam, 3, tf)
+        proj = project_gaussians(posed, torch.cat([h_cov, o_cov]), cam,
+                                 active=torch.cat([hand.active, obj.active]))
+        bins = bin_gaussians(proj, cam.width // TILE, cam.height // TILE,
+                             r.tg_max, r.lane_align, r.pair_budget_factor,
+                             r.max_pairs_per_tile, r.multi_frac)
+        opac = torch.cat([get_opacity(hand.params), get_opacity(obj.params)])
+        pay = build_payload(proj, colors, opac.reshape(-1), bins)
+    return pay, bins, f, v
+
+
+def composite_phase(dev, hand_run_dir):
+    """COMPOSITE through the CLI on the card (docstring phase 10). Returns
+    the summed {kernel: launches} of its composite runs."""
+    shutil.rmtree(COMPOSITE_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    otr, _, olines, opeak, owall = _run_cli(OBJECT_ARGS)
+    obj_events = [ln for ln in olines if ln.startswith("[densify]")]
+    print(f"composite: object trained through the CLI: {OBJECT_STEPS} steps "
+          f"in {owall:.1f} s, {int(otr.state.model.active.sum())} of "
+          f"{otr.state.model.capacity} slots live, events {obj_events}, "
+          f"peak {opeak:.1f} MiB")
+    check(any(ln.startswith(f"[densify] step {OBJECT_DENSIFY_AT}")
+              for ln in obj_events), "composite: the object's densify event "
+          f"did not fire at step {OBJECT_DENSIFY_AT}")
+    hand_ckpts = os.path.join(hand_run_dir, "checkpoints")
+    cfg = composite_config()
+    apply_overrides(cfg, _cli_args()[2:])
+    ds = cli.build_dataset(cfg, dev)
+    hand0, vg0 = cli._load_model(hand_ckpts, dev)
+    bone_tf = cli._bone_tf(ds, 0, vg0)
+    placed = os.path.join(COMPOSITE_DIR, "object_placed", "checkpoints")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    shift, touching, lit = place_object(hand0, vg0, ds, otr.ckpt_dir, placed)
+    torch.cuda.synchronize()
+    del otr
+    print(f"composite: placement scan {time.perf_counter() - t1:.2f} s; "
+          f"the object moved by {np.round(shift, 4).tolist()} m "
+          f"toward camera 0: {touching} of the hand's "
+          f"{int(hand0.active.sum())} live points in contact at frame 0, "
+          f"{lit} pixels of frame 0's accumulated contact panel above 0.5")
+    check(lit > 0, "composite: no placement of the object lights a pixel "
+          "of the contact panel")
+    ckpts = [f"hand_ckpt_dir={hand_ckpts}", f"object_ckpt_dir={placed}"]
+
+    total = {name: 0 for name in COUNTERS}
+    runs = {}
+    n_gt = COMPOSITE_FRAMES * COMPOSITE_VIEWS
+    for exp, mode, extra in COMPOSITE_RUNS:
+        run, launches, lines, peak, wall = _run_cli(_cli_args(
+            *ckpts, f"trainer.exp_name={exp}",
+            f"contact_render_type={mode}", *extra))
+        runs[exp if mode != "acc_gt_eval" else mode] = run
+        steps = len(run.finetune_loss)
+        for name in total:
+            total[name] += launches[name]
+        frames = len(run.frames)
+        ms = [x * 1e3 for x in run.frame_s]
+        print(f"composite {mode} ({exp}): {frames} frames, {wall:.1f} s "
+              f"through the CLI; ms a frame (contacts both ways, "
+              f"{PANELS[mode]} panels, copy to the host) median "
+              f"{statistics.median(ms):.3f} (first {ms[0]:.3f}, max "
+              f"{max(ms):.3f}); pair_overflow {run.pair_overflow}; peak "
+              f"{peak:.1f} MiB; launches {launches}")
+        want_fwd = n_gt + PANELS[mode] * frames + steps
+        check(launches["composite_fwd"] == want_fwd,
+              f"composite {mode}: composite_fwd launched "
+              f"{launches['composite_fwd']} times, not {n_gt} gt renders + "
+              f"{PANELS[mode]} x {frames} panels + {steps} steps")
+        check(launches["composite_bwd"] == steps,
+              f"composite {mode}: composite_bwd launched "
+              f"{launches['composite_bwd']} times, not {steps}")
+        check(all(launches[n] == 0 for n in COUNTERS
+                  if not n.startswith("composite")),
+              f"composite {mode}: an LPIPS kernel ran")
+        acc = np.load(os.path.join(_ours_dir(exp), "acc_contacts.npy"))
+        check(acc.shape == (run.models.hand.capacity,) and acc.dtype ==
+              np.float32, f"composite {mode}: acc_contacts.npy {acc.shape}")
+        bound = frames if mode != "acc_gt_eval" else COMPOSITE_FRAMES
+        check(bool(np.isfinite(acc).all() and (acc >= 0).all()
+                   and (acc <= bound).all()),
+              f"composite {mode}: acc_contacts.npy not in [0, {bound}]")
+        pngs = [f for f in os.listdir(_ours_dir(exp)) if f.endswith(".png")]
+        check(len(pngs) == frames, f"composite {mode}: {len(pngs)} PNGs for "
+              f"{frames} frames")
+        if steps:
+            ft_ms = run.finetune_s / steps * 1e3
+            first, last = (statistics.mean(run.finetune_loss[sl])
+                           for sl in (slice(0, 10), slice(-10, None)))
+            print(f"composite fine-tune (optimize_hand): {steps} steps, "
+                  f"{ft_ms:.3f} ms/step; loss mean of the first 10 steps "
+                  f"{first:.6f}, of the last 10 {last:.6f}")
+
+    res = runs["results"]
+    hand, obj, vg = res.models
+
+    # one frame's contact maps on the card against float64 on the CPU
+    opts = GaussianOpts()
+    with torch.no_grad():
+        h_xyz, _, _ = forward_gaussians(hand.params, hand.active,
+                                        resolve_skin_weights(hand, vg),
+                                        bone_tf, opts)
+    o_xyz = obj.params.xyz
+    search_ms = cuda_ms(lambda: contact_map(h_xyz, o_xyz, hand.active,
+                                            obj.active), 3)
+    h_d01, h_idx, _ = contact_map(h_xyz, o_xyz, hand.active, obj.active)
+    o_d01, o_idx, _ = contact_map(o_xyz, h_xyz, obj.active, hand.active)
+    gen = torch.Generator().manual_seed(0)
+    n_contact = int((h_d01 > 0).sum())
+    for tag, x, y, xv, yv, d01, idx in (
+            ("hand->object", h_xyz, o_xyz, hand.active, obj.active, h_d01,
+             h_idx),
+            ("object->hand", o_xyz, h_xyz, obj.active, hand.active, o_d01,
+             o_idx)):
+        live = torch.nonzero(xv).reshape(-1).cpu()
+        # half the rows from the points in contact, so the near-contact
+        # conditioning is exercised
+        near = torch.nonzero(d01 > 0).reshape(-1).cpu()
+        near = near[torch.randperm(len(near), generator=gen)[
+            :CONTACT_ROWS // 2]]
+        rest = live[~torch.isin(live, near)]
+        rest = rest[torch.randperm(len(rest), generator=gen)[
+            :CONTACT_ROWS - len(near)]]
+        rows = torch.cat([near, rest]).to(dev)
+        excess, unique, in_contact = contact_reference(x, y, yv, d01, idx,
+                                                       rows)
+        print(f"composite contacts {tag}: {int(xv.sum())} x {int(yv.sum())} "
+              f"live of {x.shape[0]} x {y.shape[0]} slots; {len(rows)} rows "
+              f"against float64 on the CPU: largest error {excess:.3f} of "
+              f"its bound, {unique:.4f} of the rows with a unique nearest; "
+              f"{in_contact} of the rows in contact; "
+              f"{int((d01 > 0).sum())} points in contact")
+        check(excess <= 1.0, f"composite contacts {tag}: beyond the bound")
+    print(f"composite: one contact search (131,072 x 131,072 slots, hand "
+          f"-> object) {search_ms:.3f} ms; hand points in contact at frame "
+          f"0: {n_contact}")
+    check(n_contact > 0, "composite: no hand point is in contact")
+
+    # one results frame through the kernels against the plain composite
+    raster = make_raster_config(cfg)
+    aux = torch.zeros(hand.capacity, 3, device=dev)
+    acc0 = torch.zeros(hand.capacity, device=dev)
+    out = {}
+    for backend in ("cuda", "torch"):
+        fn = make_composite_render(cfg, raster._replace(backend=backend),
+                                   "results")
+        out[backend] = fn(res.models, bone_tf, index_camera(ds.cameras, 0),
+                          index_camera(ds.cameras, 0), torch.zeros(3,
+                                                                   device=dev),
+                          acc0, aux)
+    (rk, ak, dk), (rp, ap, dp) = out["cuda"], out["torch"]
+    err = (rk - rp).abs().amax(-1)
+    flips = int((err > FWD_ATOL).sum())
+    print(f"composite results frame 0, kernels against the plain composite: "
+          f"max abs err {err.max().item():.3e}, {flips} of {err.numel()} "
+          f"pixels beyond {FWD_ATOL}")
+    check(err.max().item() <= FLIP_ATOL and flips <= FLIP_SHARE * err.numel()
+          and torch.equal(ak, ap) and torch.equal(dk, dp),
+          "composite: the kernels' frame disagrees with the plain one")
+
+    # the backward kernel at the fine-tune's shapes: the full scene's
+    # payload of its first batch, against the plain backward
+    pay, bins, f, v = finetune_payload(cfg, res.models, ds, dev)
+    print(f"composite fine-tune batch 0 (frame {f}, view {v}): "
+          f"{pay.shape[1]} payload columns for "
+          f"{hand.capacity + obj.capacity} slots, pair_overflow "
+          f"{int(bins.overflow_count)}")
+    torch.cuda.reset_peak_memory_stats()
+    composite_check(pay, bins, dev, "fine-tune scene", COMPOSITE_SIZE,
+                    COMPOSITE_SIZE)
+    print(f"composite fine-tune scene check: peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    del pay, bins
+
+    # the fine-tune lowers the composite loss over the images it draws
+    # from (each loss from a step on a fresh state, before its update)
+    ft = runs["finetune"]
+    step = make_composite_finetune_step(cfg, raster, "hand", voxel_grid=vg)
+
+    def scene_loss(h):
+        losses = []
+        for f in range(ds.num_frames):
+            for v in range(ds.num_views):
+                raw = ds.get_batch(f, np.asarray([v]))
+                batch = dict(
+                    rgb=torch.as_tensor(raw["rgb"][0], device=dev),
+                    mask=torch.as_tensor(raw["mask"][0], dtype=torch.float32,
+                                         device=dev),
+                    camera=index_camera(ds.cameras, v),
+                    bg=torch.zeros(3, device=dev),
+                    bone_tf=cli._bone_tf(ds, f, vg))
+                losses.append(step(init_train_state(h), obj, batch)[1][
+                    "loss"])
+        return torch.stack(losses).mean().item()
+
+    before, after = scene_loss(hand0), scene_loss(ft.models.hand)
+    print(f"composite fine-tune: loss over the {ds.num_frames} x "
+          f"{ds.num_views} images {before:.6f} with the trained hand, "
+          f"{after:.6f} after {len(ft.finetune_loss)} steps")
+    check(after < before, "composite: the fine-tune loss did not fall")
+
+    # the MANO baseline on a procedural mesh, against the CPU
+    verts, faces = icosphere(BASELINE_LEVEL)
+    # about the hand's points in contact at frame 0, through the object's
+    # 200th nearest point to there (so it crosses the object's wall)
+    obj_pts = obj.params.xyz[obj.active]
+    centre = h_xyz[h_d01 > 0].mean(0)
+    radius = torch.kthvalue((obj_pts - centre).norm(dim=1), 200).values
+    rest = verts * radius.item() + centre.cpu().numpy()
+    posed = [rest + np.float32([0, 0, 0.004 * f])
+             for f in range(BASELINE_FRAMES)]
+    obj_pts = obj_pts.cpu().numpy()
+    mano_dir = os.path.join(os.path.dirname(_ours_dir("eval")), "mano")
+    eval_frames = runs["acc_gt_eval"].frames
+    cams = [index_camera(ds.cameras, f % ds.num_views) for f in eval_frames]
+    for fn_ in COUNTERS.values():
+        fn_.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    acc_g = mano_baseline_contacts(
+        rest, faces, posed, obj_pts, mano_dir, cameras=cams,
+        camera_names=[f"{f:04d}" for f in eval_frames],
+        raster_config=raster, device=dev)
+    base_s = time.perf_counter() - t1
+    base_launches = composite.composite_fwd_cuda.launches
+    # each frame's contacts of the subdivided mesh on the card and on the
+    # CPU: d01 within the expansion's conditioning bound per vertex,
+    # min(sqrt(2 eps), 2 eps / (d_card + d_cpu)) / c with eps = 8 u
+    # (max |x| + max |y|)^2 from this frame's norms (contact_reference),
+    # plus 1e-6 for the float32 rounding of each d01; the accumulated
+    # map within the sum of its frames' bounds of the CPU's sum
+    c = CONTACT_THRESHOLD
+    acc_c, tol, excess = np.zeros(len(acc_g)), np.zeros(len(acc_g)), 0.0
+    for pv in posed:
+        fv = faces
+        for _ in range(3):  # mano_baseline_contacts' subdiv_iters
+            pv, fv = subdivide_mesh(pv, fv)
+        d_g, d_c = (contact_map(torch.as_tensor(pv, device=d),
+                                torch.as_tensor(obj_pts, device=d))[0]
+                    .double().cpu().numpy() for d in (dev, "cpu"))
+        eps = 8 * 2.0 ** -24 * (np.linalg.norm(pv, axis=1).max()
+                                + np.linalg.norm(obj_pts, axis=1).max()) ** 2
+        da, db = c * (1.0 - d_g), c * (1.0 - d_c)
+        bound = np.minimum(np.sqrt(2 * eps), 2 * eps / np.maximum(
+            da + db, 1e-30)) / c + 1e-6
+        excess = max(excess, float((np.abs(d_g - d_c) / bound).max()))
+        acc_c += d_c
+        tol += bound
+    diff = np.abs(acc_g - acc_c)
+    print(f"composite baseline: icosphere level {BASELINE_LEVEL} of radius "
+          f"{radius.item():.4f} m subdivided 3 times ({len(acc_g)} vertices), "
+          f"{BASELINE_FRAMES} frames, "
+          f"{base_s:.2f} s on the card with {len(cams)} renders "
+          f"({base_launches} composite_fwd launches); {int((acc_g > 0).sum())}"
+          f" vertices in contact; against the CPU: each frame's largest "
+          f"error {excess:.3f} of its bound, the accumulated map's max abs "
+          f"{diff.max():.3e} ({(diff / tol).max():.3f} of its bound), mean "
+          f"{diff.mean():.3e}")
+    check(base_launches == len(cams), "composite baseline: launches")
+    check(excess <= 1.0 and bool((diff <= tol).all()) and diff.mean() < 1e-4
+          and (acc_g > 0).any(),
+          "composite baseline: contacts disagree with the CPU's")
+
+    # the evaluation against ground truth made from the acc_gt_eval frames
+    # that show contact (a frame without, where IoU is 0 / 0, scores 0)
+    gt_dir = os.path.join(COMPOSITE_DIR, "gt")
+    lit = []
+    for f in eval_frames:
+        name = f"{f:04d}.png"
+        fr = read_png(os.path.join(_ours_dir("eval"), name))
+        w = fr.shape[1] // 2
+        skin, contact = fr[:, :w], fr[:, w:]
+        seg = contact.mean(-1) > 127.5
+        if not seg.any():
+            continue
+        lit.append(f)
+        dump_image(seg.astype(np.uint8) * 255,
+                   os.path.join(gt_dir, "gt_contacts_seg", name))
+        dump_image(np.dstack([skin, (skin.max(-1) > 0).astype(np.uint8)
+                              * 255]),
+                   os.path.join(gt_dir, "gt_contacts", name))
+    print(f"composite eval: frames {lit} of {eval_frames} show contact")
+    check(len(lit) > 0, "composite eval: no acc_gt_eval frame shows contact")
+    scores, _, _, epeak, ewall = _run_cli([
+        "--config-name", "COMPOSITE", "trainer.mode=eval_contacts",
+        "trainer.exp_name=eval", f"trainer.output_dir={COMPOSITE_DIR}",
+        f"gt_contact_dir={gt_dir}"])
+    with open(os.path.join(os.path.dirname(_ours_dir("eval")),
+                           "eval_metric.csv")) as f:
+        table = [ln.split(",")[0] for ln in f.read().splitlines()]
+    print(f"composite eval_contacts: {ewall:.2f} s for {len(lit)} frames, "
+          f"scores {scores}, rows {table}, peak {epeak:.1f} MiB")
+    check(scores["ours"] == {"iou": 1.0, "f1": 1.0},
+          f"composite eval: ours scores {scores['ours']}, not 1")
+    check("mano" in scores and "mano" in table,
+          "composite eval: no mano column")
+    print(f"composite: phase {time.perf_counter() - t0:.1f} s")
+
+    # keep one frame a run and the tables; drop the rest
+    for exp in {e for e, _, _ in COMPOSITE_RUNS}:
+        ours = _ours_dir(exp)
+        for name in sorted(os.listdir(ours))[1:]:
+            if name.endswith(".png"):
+                os.remove(os.path.join(ours, name))
+    for sub in ("gt_eval", "acc_eval", "acc_eval_rendered"):
+        shutil.rmtree(os.path.join(mano_dir, sub), ignore_errors=True)
+    for name in ("eval_collage.png",):
+        path = os.path.join(os.path.dirname(_ours_dir("eval")), name)
+        if os.path.exists(path):
+            os.remove(path)
+    return total
 
 
 def main() -> int:
@@ -1440,9 +2003,25 @@ def main() -> int:
     print(f"flagship step: median {flagship_ms:.3f} ms (the primary plain "
           f"step {plain_step_ms:.3f})")
 
-    # this slice's main path: the trainer; its counts go in the kernels
-    # line (the earlier paths' are on their own lines above)
-    launches.update(trainer_phase(flagship_ms))
+    trainer_launches, hand_run_dir = trainer_phase(flagship_ms)
+    launches.update(trainer_launches)
+    # this slice's main path: the COMPOSITE runs; the composite kernels'
+    # counts in the kernels line are theirs (the LPIPS kernels' the
+    # trainer's; the earlier paths' are on their own lines above)
+    try:
+        comp_launches = composite_phase(dev, hand_run_dir)
+    finally:
+        for sub in ("checkpoints", os.path.join("results", "val_results",
+                                                "gaussians")):
+            shutil.rmtree(os.path.join(hand_run_dir, sub), ignore_errors=True)
+        shutil.rmtree(os.path.join(TRAINER_DIR, "manus_tpu", "synthetic",
+                                   "obj"), ignore_errors=True)
+        shutil.rmtree(os.path.join(COMPOSITE_DIR, "object_placed"),
+                      ignore_errors=True)
+    print(f"composite phase launches over its five COMPOSITE runs: "
+          f"{comp_launches}")
+    launches.update({n: comp_launches[n] for n in ("composite_fwd",
+                                                   "composite_bwd")})
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name],

@@ -141,8 +141,10 @@ class ExperimentConfig:
     # "mano_init_points" (stored per point); make_train_step checks that
     # its voxel_grid argument agrees
     skin_init: str = "mano_init_voxel"
-    # composite, evaluation and rendering (not ported; kept so that a
-    # snapshot loads and overrides parse)
+    # composite (main.run_composite) and its contact evaluation
+    # (trainer.mode=eval_contacts, gt_contact_dir); novel poses and path
+    # rendering are not ported (kept so that a snapshot loads and
+    # overrides parse)
     hand_ckpt_dir: str = ""
     object_ckpt_dir: str = ""
     contact_render_type: str = "results"
@@ -153,7 +155,9 @@ class ExperimentConfig:
     checkpoint: Optional[str] = None
     gt_contact_dir: str = ""
     novel_pose_path: str = ""
-    camera_path: str = ""  # render_path's camera path pkl (not ported)
+    # render_path's and the composite's camera path pkl (not ported: the
+    # composite runs without one)
+    camera_path: str = ""
     render_ckpt_dir: str = ""
     render_frames: int = 60
 
@@ -202,7 +206,10 @@ def hand_config() -> ExperimentConfig:
 
 
 def composite_config() -> ExperimentConfig:
-    """COMPOSITE (the workload is not ported; the CLI refuses it)."""
+    """COMPOSITE: the trained hand and object rendered together, their
+    contacts captured (main.run_composite); the raster options are the
+    defaults (pair_budget_factor 8, multi_frac 1.0), as in the JAX
+    package."""
     cfg = ExperimentConfig(workload="composite")
     cfg.trainer.mode = "test"
     cfg.loss = LossConfig(

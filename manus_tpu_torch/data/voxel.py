@@ -153,6 +153,45 @@ def mano_skin_weights_20(mano: dict) -> np.ndarray:
     return w / np.maximum(w.sum(axis=1, keepdims=True), 1e-8)
 
 
+def pose_mano_verts(mano: dict, pose_transforms: np.ndarray,
+                    rest_transforms: np.ndarray, device=None) -> np.ndarray:
+    """The MANO rest mesh posed by linear blend skinning with captured
+    per-frame bone transforms ([20, 4, 4] posed and rest): MANO's own
+    vertex weights (mano_skin_weights_20) blend the rest -> posed
+    transforms the hand model skins with. This stands in for manopth's
+    PCA-posed meshes (the MANO model file is not shipped), without the
+    pose-corrective blendshapes: mm-scale near the joint creases, below
+    the 4 mm contact threshold. Returns [V, 3] float32."""
+    from manus_tpu_torch.ops.skinning import bone_deformation_transforms
+
+    device = resolve_device(device)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    w = t(mano_skin_weights_20(mano))  # [V, 20]
+    tf_bones = bone_deformation_transforms(t(pose_transforms),
+                                           t(rest_transforms))
+    with fp32_matmul():
+        tf = (w @ tf_bones.reshape(-1, 16)).reshape(-1, 4, 4)
+        v = t(mano["verts"])
+        posed = torch.einsum("nij,nj->ni", tf[:, :3, :3], v) + tf[:, :3, 3]
+    return posed.cpu().numpy().astype(np.float32)
+
+
+def pose_mano_sequence(mano: dict, bones_posed, bones_rest,
+                       device=None) -> list:
+    """Posed MANO meshes for every frame (pose_mano_verts), the
+    posed_verts_seq of train/baselines.mano_baseline_contacts:
+    `bones_posed` a list of per-frame Bones, `bones_rest` the rest Bones."""
+    def host(x):
+        return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+    rest_tf = host(bones_rest.transforms)
+    return [pose_mano_verts(mano, host(b.transforms), rest_tf, device)
+            for b in bones_posed]
+
+
 def visualize_skin_weights(skin_weights: np.ndarray,
                            seed: int = 0) -> np.ndarray:
     """[N, B] weights -> [N, 3] colours: a distinct colour per bone from a

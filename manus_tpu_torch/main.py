@@ -1,6 +1,8 @@
-"""The training CLI: pick an experiment config by name, apply dotted
-overrides, snapshot the config into the run directory, resolve a
-checkpoint to resume ("best" too), seed, and train.
+"""The CLI: pick an experiment config by name, apply dotted overrides,
+snapshot the config into the run directory, resolve a checkpoint to
+resume ("best" too), seed, and train; or composite two trained models
+and capture their contacts (COMPOSITE), or score a composite run's
+contacts (trainer.mode=eval_contacts).
 
   python -m manus_tpu_torch.main --config-name OBJ_GAUSSIAN \\
       trainer.max_steps=2000 trainer.exp_name=run1
@@ -9,6 +11,11 @@ checkpoint to resume ("best" too), seed, and train.
   python -m manus_tpu_torch.main --config-name outputs/manus_tpu/synthetic/hand \\
       trainer.max_steps=20 checkpoint=best
   python -m manus_tpu_torch.main --device cpu --config-name OBJ_GAUSSIAN ...
+  python -m manus_tpu_torch.main --config-name COMPOSITE \\
+      hand_ckpt_dir=.../hand/checkpoints object_ckpt_dir=.../obj/checkpoints \\
+      contact_render_type=acc_gt_eval trainer.exp_name=comp
+  python -m manus_tpu_torch.main --config-name COMPOSITE \\
+      trainer.mode=eval_contacts trainer.exp_name=comp gt_contact_dir=...
 
 The JAX package's CLI (main.py) has the same shape, and a run directory
 of either package resumes under the other. Runs go to the CUDA card
@@ -20,6 +27,8 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,18 +46,33 @@ from manus_tpu_torch.data.voxel import (
     MANO_TO_OURS,
     load_mano_rest,
     make_voxel_grid,
+    visualize_skin_weights,
 )
 from manus_tpu_torch.models.gaussians import init_gaussian_model
 from manus_tpu_torch.ops.knn import knn_indices
+from manus_tpu_torch.ops.skinning import bone_deformation_transforms
+from manus_tpu_torch.train import checkpoint as ckpt_mod
+from manus_tpu_torch.train.composite import (
+    CompositeModels,
+    make_composite_finetune_step,
+    make_composite_render,
+)
+from manus_tpu_torch.train.evaluate import evaluate_composite
 from manus_tpu_torch.train.trainer import Trainer
+from manus_tpu_torch.train.workloads import (
+    init_train_state,
+    make_raster_config,
+    resolve_skin_weights,
+)
+from manus_tpu_torch.utils.camera import index_camera
 from manus_tpu_torch.utils.device import resolve_device
+from manus_tpu_torch.utils.io import dump_image
 
 # what is not ported -> the ROADMAP Queue A item that ports it
-EVALUATION, CONTACTS, DATA = ("A6 (evaluation)", "A5 (compositing and "
-                              "contacts)", "A7 (data and preprocessing)")
+EVALUATION, DATA = "A6 (evaluation)", "A7 (data and preprocessing)"
 NOT_PORTED_MODES = {
     "render_path": EVALUATION, "make_path": EVALUATION,
-    "eval_contacts": CONTACTS, "make_pose": DATA, "validate_data": DATA,
+    "make_pose": DATA, "validate_data": DATA,
 }
 
 
@@ -128,8 +152,170 @@ def run_train(cfg, out_dir, device=None) -> Trainer:
     return tr
 
 
+class CompositeRun(NamedTuple):
+    """What run_composite did: its output directory, the models it
+    rendered (after the fine-tune, if any), the frames, host seconds per
+    frame (render and copy to the host), the fine-tune's per-step losses
+    and seconds (empty without it), and the largest binning pair
+    overflow of any panel."""
+
+    out_dir: str
+    models: CompositeModels
+    frames: list
+    frame_s: list
+    finetune_loss: list
+    finetune_s: float
+    pair_overflow: int
+
+
+def _load_model(ckpt_dir: str, device):
+    path = ckpt_mod.find_best_checkpoint(ckpt_dir)
+    if path is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    model, voxel_grid, _ = ckpt_mod.load_gaussian_model(path, device)
+    print(f"loaded {path} ({int(model.active.sum())} gaussians)")
+    return model, voxel_grid
+
+
+def _bone_tf(dataset, f: int, voxel_grid):
+    return bone_deformation_transforms(
+        dataset.bones_posed[f].transforms, dataset.bones_rest.transforms,
+        append_identity=voxel_grid is not None)
+
+
+def run_composite(cfg, out_dir, device=None) -> CompositeRun:
+    """The COMPOSITE workload (the JAX CLI's run_composite): load the best
+    hand and object checkpoints, optionally fine-tune one of them on the
+    full composite render (optimize_hand / optimize_object,
+    finetune_steps; frame and view drawn from RandomState(trainer.seed) in
+    the JAX CLI's order), then render every frame in
+    cfg.contact_render_type (gt_eval: the last 250) from camera
+    f % num_views, accumulating the hand's contacts. acc_gt_eval renders
+    the acc_contacts.npy an earlier gt_eval or results run of the same
+    experiment left, as the reference does (zeros without one). Writes
+    results/eval_results/ours/{f:04d}.png and acc_contacts.npy. The
+    {mode}.mp4 of the JAX CLI is not written (no video encoder here)."""
+    device = resolve_device(device)
+    mode = cfg.contact_render_type
+    if cfg.camera_path and mode != "acc_gt_eval" and os.path.exists(
+            cfg.camera_path):
+        _not_ported("camera_path (a camera-path sweep of the composite)",
+                    EVALUATION)
+    raster_cfg = make_raster_config(cfg)
+    raster_cfg = raster_cfg._replace(
+        backend=resolve_raster_backend(raster_cfg.backend, device))
+    render_fn = make_composite_render(cfg, raster_cfg, mode)  # checks mode
+    dataset = build_dataset(cfg, device)
+    hand, hand_vg = _load_model(cfg.hand_ckpt_dir, device)
+    obj, _ = _load_model(cfg.object_ckpt_dir, device)
+
+    ft_loss, ft_s = [], 0.0
+    if cfg.optimize_hand or cfg.optimize_object:
+        optimize = "hand" if cfg.optimize_hand else "object"
+        state = init_train_state(hand if optimize == "hand" else obj,
+                                 seed=cfg.trainer.seed)
+        frozen = obj if optimize == "hand" else hand
+        ft_step = make_composite_finetune_step(cfg, raster_cfg, optimize,
+                                               voxel_grid=hand_vg)
+        rng = np.random.RandomState(cfg.trainer.seed)
+        bg = torch.zeros(3, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for it in range(cfg.finetune_steps):
+            f = rng.randint(dataset.num_frames)
+            v = rng.randint(dataset.num_views)
+            raw = dataset.get_batch(f, np.asarray([v]))
+            batch = dict(
+                rgb=torch.as_tensor(raw["rgb"][0], dtype=torch.float32,
+                                    device=device),
+                mask=torch.as_tensor(raw["mask"][0], dtype=torch.float32,
+                                     device=device),
+                camera=index_camera(dataset.cameras, v), bg=bg,
+                bone_tf=_bone_tf(dataset, f, hand_vg))
+            state, m = ft_step(state, frozen, batch)
+            ft_loss.append(m["loss"])
+            if it % 50 == 0 or it == cfg.finetune_steps - 1:
+                print(f"[finetune:{optimize}] step {it}: "
+                      f"loss={float(m['loss']):.5f} "
+                      f"psnr={float(m['psnr']):.2f}")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ft_s = time.perf_counter() - t0
+        ft_loss = [float(x) for x in ft_loss]
+        if optimize == "hand":
+            hand = state.model
+        else:
+            obj = state.model
+
+    models = CompositeModels(hand=hand, obj=obj, voxel_grid=hand_vg)
+    out_imgs = os.path.join(out_dir, "results", "eval_results", "ours")
+    os.makedirs(out_imgs, exist_ok=True)
+    acc = torch.zeros(hand.capacity, device=device)
+    acc_path = os.path.join(out_imgs, "acc_contacts.npy")
+    if mode == "acc_gt_eval" and os.path.exists(acc_path):
+        # the reference's acc_gt_eval renders the accumulated contacts an
+        # earlier gt_eval or results run of this experiment saved (the
+        # JAX CLI renders zeros; ROADMAP Queue C)
+        saved = np.load(acc_path)
+        if saved.shape != (hand.capacity,):
+            raise ValueError(f"{acc_path} holds {saved.shape}, the hand "
+                             f"has {hand.capacity} slots")
+        acc = torch.as_tensor(saved, dtype=torch.float32, device=device)
+        print(f"composite: acc_gt_eval renders the contacts in {acc_path}")
+    elif mode == "acc_gt_eval":
+        print(f"composite: WARNING: acc_gt_eval found no {acc_path} (run "
+              f"gt_eval or results in this experiment first): its contact "
+              f"panel renders zeros")
+    skin_w = resolve_skin_weights(hand, hand_vg)
+    aux_colors = torch.as_tensor(
+        visualize_skin_weights(skin_w.cpu().numpy()) if skin_w is not None
+        else np.zeros((hand.capacity, 3), np.float32), device=device)
+    bg = torch.zeros(3, device=device)
+    cano_cam = index_camera(dataset.cameras, 0)
+    # gt_eval takes the tail of the sequence (the reference's TestDataset,
+    # brics_dynamic.py:564-567); the other modes every frame
+    frame_list = list(range(dataset.num_frames))
+    if mode == "gt_eval":
+        frame_list = frame_list[-250:]
+    frame_s, overflow, stats = [], 0, {}
+    for f in frame_list:
+        t0 = time.perf_counter()
+        render, acc, _ = render_fn(
+            models, _bone_tf(dataset, f, hand_vg),
+            index_camera(dataset.cameras, f % dataset.num_views), cano_cam,
+            bg, acc, aux_colors, stats=stats)
+        img = render.clamp(0, 1).cpu().numpy()
+        frame_s.append(time.perf_counter() - t0)
+        overflow = max(overflow, int(stats["pair_overflow"]))
+        dump_image((img * 255).astype(np.uint8),
+                   os.path.join(out_imgs, f"{f:04d}.png"))
+    np.save(acc_path, acc.cpu().numpy())
+    print(f"composite: {mode}.mp4 not written: the video writer is not "
+          f"ported (ROADMAP Queue A item {EVALUATION})")
+    print(f"composite: wrote {len(frame_list)} frames to {out_imgs} "
+          f"(pair_overflow {overflow})")
+    return CompositeRun(out_dir=out_dir, models=models, frames=frame_list,
+                        frame_s=frame_s, finetune_loss=ft_loss,
+                        finetune_s=ft_s, pair_overflow=overflow)
+
+
+def run_eval_contacts(cfg, out_dir, device=None) -> dict:
+    """trainer.mode=eval_contacts: the three-way contact table of the
+    composite run in out_dir against gt_contact_dir's gt_contacts_seg
+    (masks) and gt_contacts (RGBA photos). Returns {method: {iou, f1}}."""
+    scores = evaluate_composite(
+        out_dir, os.path.join(cfg.gt_contact_dir, "gt_contacts_seg"),
+        os.path.join(cfg.gt_contact_dir, "gt_contacts"),
+        device=resolve_device(device))
+    for m, sc in scores.items():
+        print(f"[eval] {m}: iou={sc['iou']:.3f} f1={sc['f1']:.3f}")
+    return scores
+
+
 def main(argv=None):
-    """Parse the CLI and run. Returns the Trainer of the run."""
+    """Parse the CLI and run. Returns the Trainer of a training run, the
+    CompositeRun of COMPOSITE, or eval_contacts' scores."""
     parser = argparse.ArgumentParser(prog="python -m manus_tpu_torch.main")
     parser.add_argument(
         "--config-name", required=True,
@@ -171,11 +357,10 @@ def main(argv=None):
     mode = cfg.trainer.mode
     if mode in NOT_PORTED_MODES:
         _not_ported(f"trainer.mode={mode!r}", NOT_PORTED_MODES[mode])
-    if cfg.workload == "composite":
-        _not_ported("the COMPOSITE workload", CONTACTS)
-    if mode == "test":
+    composite = mode != "eval_contacts" and cfg.workload == "composite"
+    if mode == "test" and not composite:
         _not_ported("trainer.mode='test'", EVALUATION)
-    if cfg.trainer.mode != "train":
+    if mode not in ("train", "eval_contacts") and not composite:
         raise ValueError(f"unknown trainer.mode {cfg.trainer.mode!r}")
 
     out_dir = os.path.join(
@@ -188,6 +373,10 @@ def main(argv=None):
     torch.manual_seed(cfg.trainer.seed)
     if cfg.trainer.debug_nans:
         torch.autograd.set_detect_anomaly(True)
+    if mode == "eval_contacts":
+        return run_eval_contacts(cfg, out_dir, device)
+    if composite:
+        return run_composite(cfg, out_dir, device)
     return run_train(cfg, out_dir, device)
 
 

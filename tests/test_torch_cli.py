@@ -1,9 +1,12 @@
-"""The port's training CLI, `python -m manus_tpu_torch.main`, on the CPU
-(--device cpu): the counterparts of tests/test_cli.py's
-test_cli_training_artifacts and test_cli_resume_from_run_dir, a JAX run
-directory resumed by the port, and the modes that are not ported."""
+"""The port's CLI, `python -m manus_tpu_torch.main`, on the CPU (--device
+cpu): the counterparts of tests/test_cli.py's test_cli_training_artifacts,
+test_cli_resume_from_run_dir, test_cli_composite and
+test_cli_composite_finetune against the JAX CLI, a JAX run directory
+resumed by the port, eval_contacts against the JAX CLI's, and the modes
+that are not ported."""
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -12,6 +15,7 @@ import torch
 import main as jmain
 from manus_tpu_torch import main as tmain
 from manus_tpu_torch.train import checkpoint as tck
+from manus_tpu_torch.utils.io import dump_image, read_png
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -117,14 +121,13 @@ def test_a_jax_run_directory_resumes_in_the_port(tmp_path):
     (["trainer.mode=test"], "A6"),
     (["trainer.mode=render_path"], "A6"),
     (["trainer.mode=make_path"], "A6"),
-    (["trainer.mode=eval_contacts"], "A5"),
     (["trainer.mode=make_pose"], "A7"),
     (["trainer.mode=validate_data"], "A7"),
     (["dataset.kind=brics_dynamic"], "A7"),
     (["trainer.distributed=true"], "A8"),
     (["trainer.data_axis=2", "trainer.batch_views=2"], "item 8"),
-], ids=["test", "render_path", "make_path", "eval_contacts", "make_pose",
-        "validate_data", "brics", "distributed", "mesh"])
+], ids=["test", "render_path", "make_path", "make_pose", "validate_data",
+        "brics", "distributed", "mesh"])
 def test_modes_not_ported_raise(overrides, what, tmp_path):
     with pytest.raises(NotImplementedError, match=what):
         tmain.main(["--device", "cpu", "--config-name", "HAND_GAUSSIAN",
@@ -132,11 +135,265 @@ def test_modes_not_ported_raise(overrides, what, tmp_path):
                     f"trainer.output_dir={tmp_path}"])
 
 
-def test_composite_workload_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="A5"):
-        tmain.main(["--device", "cpu", "--config-name", "COMPOSITE",
-                    f"trainer.output_dir={tmp_path}"])
-    assert not any(tmp_path.iterdir())
+@pytest.fixture(scope="module")
+def touching_obj(cli_out):
+    """An object checkpoint that touches the hand: the trained hand's
+    gaussians, each moved by N(0, 2 mm) per axis, without its voxel grid.
+    The trained object of cli_out (150 points on a 0.5 m sphere) lies
+    centimetres from every hand point, so its contacts would all be 0.
+    The hand is posed per frame and this copy stays at the rest pose, so
+    only part of the hand is within the 4 mm threshold."""
+    base = os.path.join(cli_out, "manus_tpu", "synthetic")
+    src = tck.find_best_checkpoint(os.path.join(base, "hand", "checkpoints"))
+    with np.load(src) as d:
+        arrays = {k: d[k] for k in d.files if "/vg_" not in k}
+    rng = np.random.RandomState(0)
+    xyz = arrays[".model/.params/.xyz"]
+    arrays[".model/.params/.xyz"] = (
+        xyz + rng.normal(0, 0.002, xyz.shape)).astype(np.float32)
+    out = os.path.join(base, "objc", "checkpoints")
+    os.makedirs(out, exist_ok=True)
+    np.savez(os.path.join(out, "step000001-loss0.100000.npz"), **arrays)
+    return out
+
+
+def _composite(cli, out, exp, *overrides):
+    """COMPOSITE through one package's CLI on cli_out's hand and the
+    touching object. Returns the run's ours/ directory and what main
+    returned (the port's CompositeRun, None from JAX's)."""
+    base = os.path.join(out, "manus_tpu", "synthetic")
+    argv = ["--config-name", "COMPOSITE", *COMMON, "dataset.num_frames=2",
+            f"trainer.exp_name={exp}", f"trainer.output_dir={out}",
+            f"hand_ckpt_dir={base}/hand/checkpoints",
+            f"object_ckpt_dir={base}/objc/checkpoints", *overrides]
+    if cli is tmain:
+        argv = ["--device", "cpu", *argv]
+    run = cli.main(argv)
+    return os.path.join(base, exp, "results", "eval_results", "ours"), run
+
+
+def _frames(ours):
+    names = sorted(f for f in os.listdir(ours) if f.endswith(".png"))
+    return names, [read_png(os.path.join(ours, n)).astype(np.int64)
+                   for n in names]
+
+
+def _check_frames(got_dir, want_dir, share=0.99):
+    """The PNG frames of two runs: the same names, pixels within one 8-bit
+    level at `share` of them (the renders agree to ~1e-4, so a value at a
+    level's edge rounds either way), and within 3 levels everywhere: a
+    contact colour whose LUT entry the distance conditioning flips moves
+    by 0.7 x magma's largest step, 0.0067 (test_torch_composite.py)."""
+    names, got = _frames(got_dir)
+    want_names, want = _frames(want_dir)
+    assert names == want_names and names
+    for g, w in zip(got, want):
+        err = np.abs(g - w)
+        assert (err <= 1).mean() >= share and err.max() <= 3, err.max()
+
+
+# The accumulated contacts of two frames: each frame's d01 within the
+# contact tolerance of test_torch_composite.py (0.07 at the conditioning's
+# worst, near d = 0; here the largest is ~2e-3, at d ~ 2 mm, where the
+# bound is 2 eps / (2 d) ~ 2e-3), and on average within 1e-4.
+@pytest.mark.parametrize("mode", ["results", "gt_eval", "acc_gt_eval"])
+def test_composite_cli_matches_jax(mode, cli_out, touching_obj):
+    """The JAX CLI and the port's composite the same pair of checkpoints
+    (the npz files are interchangeable) in the same mode: the accumulated
+    contacts and every frame agree. The port writes no video."""
+    want, _ = _composite(jmain, cli_out, f"jcomp_{mode}",
+                         f"contact_render_type={mode}")
+    got, _ = _composite(tmain, cli_out, f"tcomp_{mode}",
+                        f"contact_render_type={mode}")
+    acc_t = np.load(os.path.join(got, "acc_contacts.npy"))
+    acc_j = np.load(os.path.join(want, "acc_contacts.npy"))
+    assert acc_t.dtype == np.float32 and acc_t.shape == acc_j.shape == (1024,)
+    assert np.isfinite(acc_t).all() and (acc_t >= 0).all()
+    np.testing.assert_allclose(acc_t, acc_j, atol=2 * 0.07, rtol=0)
+    assert np.abs(acc_t - acc_j).mean() < 1e-4
+    # the same points in contact, but within rounding of the threshold
+    # (JAX's beyond-threshold residue, ~1.4e-8 a frame, is not contact)
+    diff = (acc_t > 0) != (acc_j > 1e-6)
+    assert (np.maximum(acc_t, acc_j)[diff] < 1e-2).all()
+    if mode != "acc_gt_eval":  # the clouds touch, in part
+        assert 0 < (acc_t > 0).sum() < 390
+    _check_frames(got, want)
+    assert os.path.exists(os.path.join(want, f"{mode}.mp4"))
+    assert not os.path.exists(os.path.join(got, f"{mode}.mp4"))
+
+
+def test_composite_finetune_cli_matches_jax(cli_out, touching_obj):
+    """optimize_hand=true, 6 fine-tune steps on frames and views drawn in
+    the JAX CLI's order, then the results frames: the fine-tuned hand's
+    renders and contacts as the JAX CLI's (its Adam steps agree to
+    rounding, test_torch_composite.py; six of them move a slot by at most
+    a few of them, so the frames are held at 97%)."""
+    args = ["optimize_hand=true", "finetune_steps=6"]
+    want, _ = _composite(jmain, cli_out, "jcompft", *args)
+    got, _ = _composite(tmain, cli_out, "tcompft", *args)
+    acc_t = np.load(os.path.join(got, "acc_contacts.npy"))
+    acc_j = np.load(os.path.join(want, "acc_contacts.npy"))
+    np.testing.assert_allclose(acc_t, acc_j, atol=2 * 0.07, rtol=0)
+    assert np.abs(acc_t - acc_j).mean() < 1e-3
+    _check_frames(got, want, share=0.97)
+
+
+def test_finetune_object_cli_run(cli_out, touching_obj):
+    """optimize_object=true through the port's CLI, which returns its
+    CompositeRun: 12 fine-tune losses, the nocs frames, and a fine-tuned
+    object whose composite loss over every (frame, view) of the scene is
+    below the loaded object's (each loss from a step on a fresh state,
+    taken before its update)."""
+    from manus_tpu_torch.config import composite_config
+    from manus_tpu_torch.train.composite import make_composite_finetune_step
+    from manus_tpu_torch.train.workloads import (
+        init_train_state,
+        make_raster_config,
+    )
+    from manus_tpu_torch.utils.camera import index_camera
+
+    ours, run = _composite(tmain, cli_out, "tcompft_obj",
+                           "optimize_object=true", "finetune_steps=12",
+                           "contact_render_type=nocs")
+    assert len(run.finetune_loss) == 12
+    assert all(np.isfinite(run.finetune_loss))
+    assert run.frames == [0, 1] and len(run.frame_s) == 2
+    names, frames = _frames(ours)
+    assert names == ["0000.png", "0001.png"]
+    assert frames[0].shape == (64, 3 * 64, 3)
+
+    cfg = composite_config()
+    tmain.apply_overrides(cfg, [*COMMON, "dataset.num_frames=2"])
+    ds = tmain.build_dataset(cfg, "cpu")
+    raster = make_raster_config(cfg)._replace(backend="torch")
+    step = make_composite_finetune_step(cfg, raster, "object",
+                                        voxel_grid=run.models.voxel_grid)
+    loaded, _ = tmain._load_model(touching_obj, "cpu")
+
+    def loss(obj):
+        out = []
+        for f in range(ds.num_frames):
+            for v in range(ds.num_views):
+                raw = ds.get_batch(f, np.asarray([v]))
+                batch = dict(
+                    rgb=torch.as_tensor(raw["rgb"][0]),
+                    mask=torch.as_tensor(raw["mask"][0], dtype=torch.float32),
+                    camera=index_camera(ds.cameras, v), bg=torch.zeros(3),
+                    bone_tf=tmain._bone_tf(ds, f, run.models.voxel_grid))
+                _, m = step(init_train_state(obj), run.models.hand, batch)
+                out.append(float(m["loss"]))
+        return np.mean(out)
+
+    assert loss(run.models.obj) < loss(loaded)
+
+
+def test_acc_gt_eval_renders_the_saved_contacts(cli_out, touching_obj,
+                                                capsys):
+    """acc_gt_eval after a gt_eval run of the same experiment renders that
+    run's accumulated contacts, as the reference does; the JAX CLI renders
+    zeros there (ROADMAP Queue C), as the port does without a saved map,
+    saying so on stdout."""
+    ours, _ = _composite(tmain, cli_out, "tacc",
+                         "contact_render_type=gt_eval")
+    saved = np.load(os.path.join(ours, "acc_contacts.npy"))
+    capsys.readouterr()
+    _composite(tmain, cli_out, "tacc", "contact_render_type=acc_gt_eval")
+    assert "WARNING" not in capsys.readouterr().out
+    np.testing.assert_array_equal(
+        np.load(os.path.join(ours, "acc_contacts.npy")), saved)
+    _, frames = _frames(ours)
+    assert frames[0].shape == (64, 128, 3)
+    assert frames[0][:, 64:].max() > 0  # the contact panel is not black
+    _, zero = _frames(_composite(tmain, cli_out, "tacc0",
+                                 "contact_render_type=acc_gt_eval")[0])
+    assert "acc_gt_eval found no" in capsys.readouterr().out
+    assert zero[0][:, 64:].max() == 0
+
+
+def test_acc_gt_eval_saved_contacts_match_jax(cli_out, touching_obj,
+                                              monkeypatch):
+    """The port's acc_gt_eval rendering a gt_eval run's saved contacts
+    against the JAX CLI's acc_gt_eval whose composite render is given the
+    same map in place of its zeros: the same frames (_check_frames) and
+    the map saved back unchanged by both."""
+    from manus_tpu.train import composite as jcomp
+
+    got, _ = _composite(tmain, cli_out, "taccj",
+                        "contact_render_type=gt_eval")
+    saved = np.load(os.path.join(got, "acc_contacts.npy"))
+    assert (saved > 0).any()
+    _composite(tmain, cli_out, "taccj", "contact_render_type=acc_gt_eval")
+    assert _frames(got)[1][0][:, 64:].max() > 0  # the contact panel is lit
+    make = jcomp.make_composite_render
+
+    def given_saved(*args, **kwargs):
+        render = make(*args, **kwargs)
+        return lambda models, bone_tf, cam, cano, bg, acc, aux: render(
+            models, bone_tf, cam, cano, bg, saved, aux)
+
+    monkeypatch.setattr(jcomp, "make_composite_render", given_saved)
+    want, _ = _composite(jmain, cli_out, "jaccj",
+                         "contact_render_type=acc_gt_eval")
+    for d in (got, want):
+        np.testing.assert_array_equal(
+            np.load(os.path.join(d, "acc_contacts.npy")), saved)
+    _check_frames(got, want)
+
+
+def _gt_from_acc_gt_eval(ours, gt_dir):
+    """Ground truth from an acc_gt_eval run's own frames: the contact
+    panel above 0.5 as the mask, the skin panel as the photo with the
+    hand's silhouette (any lit pixel) as alpha."""
+    for d in ("gt_contacts_seg", "gt_contacts"):
+        os.makedirs(os.path.join(gt_dir, d), exist_ok=True)
+    names, frames = _frames(ours)
+    for name, fr in zip(names, frames):
+        w = fr.shape[1] // 2
+        skin, contact = fr[:, :w].astype(np.uint8), fr[:, w:]
+        seg = (contact.mean(-1) > 127.5).astype(np.uint8) * 255
+        alpha = (skin.max(-1) > 0).astype(np.uint8) * 255
+        dump_image(seg, os.path.join(gt_dir, "gt_contacts_seg", name))
+        dump_image(np.dstack([skin, alpha]),
+                   os.path.join(gt_dir, "gt_contacts", name))
+
+
+def test_eval_contacts_cli_matches_jax(cli_out, touching_obj):
+    """trainer.mode=eval_contacts through both CLIs on copies of one
+    acc_gt_eval run (after a gt_eval run, so the contact panel is lit)
+    with a mano baseline beside it: the same eval_metric.csv and collage;
+    "ours" scores 1 against ground truth made from its own frames."""
+    base = os.path.join(cli_out, "manus_tpu", "synthetic")
+    _composite(tmain, cli_out, "teval", "contact_render_type=gt_eval")
+    ours, _ = _composite(tmain, cli_out, "teval",
+                      "contact_render_type=acc_gt_eval")
+    gt_dir = os.path.join(cli_out, "gt")
+    _gt_from_acc_gt_eval(ours, gt_dir)
+    res = os.path.dirname(ours)
+    mano = os.path.join(res, "mano", "acc_eval_rendered")
+    os.makedirs(mano)
+    for name in os.listdir(os.path.join(gt_dir, "gt_contacts_seg")):
+        seg = read_png(os.path.join(gt_dir, "gt_contacts_seg", name), "gray")
+        dump_image(np.where(np.arange(seg.shape[1]) < seg.shape[1] // 2,
+                            seg, 0).astype(np.uint8),
+                   os.path.join(mano, name))
+    shutil.copytree(os.path.join(base, "teval"), os.path.join(base, "jeval"))
+    outs = {}
+    for cli, exp in ((tmain, "teval"), (jmain, "jeval")):
+        argv = ["--config-name", "COMPOSITE", "trainer.mode=eval_contacts",
+                f"trainer.exp_name={exp}", f"trainer.output_dir={cli_out}",
+                f"gt_contact_dir={gt_dir}"]
+        got = cli.main(["--device", "cpu", *argv] if cli is tmain else argv)
+        rdir = os.path.join(base, exp, "results", "eval_results")
+        with open(os.path.join(rdir, "eval_metric.csv")) as f:
+            table = f.read()
+        outs[exp] = (got, table,
+                     read_png(os.path.join(rdir, "eval_collage.png")))
+    scores, table, collage = outs["teval"]
+    assert scores == {"ours": {"iou": 1.0, "f1": 1.0},
+                      "mano": scores["mano"]}
+    assert 0 < scores["mano"]["iou"] < 1
+    assert table == outs["jeval"][1]
+    np.testing.assert_array_equal(collage, outs["jeval"][2])
 
 
 def test_cli_runs_on_cuda_by_default(monkeypatch, tmp_path):

@@ -584,3 +584,111 @@ def test_cuda_outliers_match_cpu(dev):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     mask = outlier_mask(pts.to(dev), valid.to(dev)).cpu()
     assert torch.equal(mask, want > 0.8) and 0 < int(mask.sum()) < 100
+
+
+def _contact_clouds(seed, n=3000, m=4000):
+    """Two clouds at the hand's scale, a third of the second within a few
+    mm of the first (tests/test_torch_colormap_contacts.py's)."""
+    rng = np.random.RandomState(seed)
+    a = rng.uniform(-0.15, 0.15, (n, 3)) + np.array([0.1, 0.2, 0.05])
+    b = rng.uniform(-0.15, 0.15, (m, 3)) + np.array([0.1, 0.2, 0.05])
+    b[:m // 3] = a[rng.randint(0, n, m // 3)] + rng.normal(0, 0.002,
+                                                           (m // 3, 3))
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+def test_cuda_contact_map_matches_cpu(dev):
+    """contact_map on the card (cuBLAS, TF32 off) against the CPU's: the
+    distance expansion's conditioning bound of
+    tests/test_torch_colormap_contacts.py (|d_a - d_b| <= min(sqrt(2 eps),
+    2 eps / (d_a + d_b)), eps = 8 u (|x| + |y|)^2), indices equal where
+    the float64 neighbour wins by more than 4 eps in d^2; and so whatever
+    the caller's TF32 setting."""
+    from manus_tpu_torch.ops.contacts import CONTACT_THRESHOLD as c
+    from manus_tpu_torch.ops.contacts import contact_map
+
+    x, y = _contact_clouds(0)
+    yv = np.random.RandomState(1).uniform(size=len(y)) > 0.1
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        d_g, i_g, _ = contact_map(torch.tensor(x, device=dev),
+                                  torch.tensor(y, device=dev),
+                                  pt2_valid=torch.tensor(yv, device=dev))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    d_c, i_c, _ = contact_map(torch.tensor(x), torch.tensor(y),
+                              pt2_valid=torch.tensor(yv))
+    d_g, d_c = d_g.cpu().numpy(), d_c.numpy()
+    assert 100 < (d_c > 0).sum() < len(x)
+    eps = 8 * 2.0 ** -24 * (np.linalg.norm(x, axis=1)
+                            + np.linalg.norm(y[yv], axis=1).max()) ** 2
+    da, db = c * (1.0 - d_g.astype(np.float64)), c * (1.0 - d_c)
+    bound = np.minimum(np.sqrt(2 * eps), 2 * eps / np.maximum(da + db, 1e-30))
+    assert (np.abs(da - db) <= bound + 1e-9).all()
+    d2 = ((x[:, None].astype(np.float64) - y[None]) ** 2).sum(-1)
+    d2[:, ~yv] = np.inf
+    part = np.partition(d2, 1, axis=1)
+    unique = part[:, 1] - part[:, 0] > 4 * eps
+    np.testing.assert_array_equal(i_g.cpu().numpy()[unique],
+                                  i_c.numpy()[unique])
+
+
+def test_cuda_composite_results_panels_match_plain(dev):
+    """One `results` frame of a voxel-skinned hand and an object through
+    its palm (2,800 + 3,000 gaussians, 128x128): the composite forward
+    kernel (four launches, one a panel) against the plain composite on the
+    same card, within chip_smoke.py's composite tolerance (1e-4, but at
+    most 0.1% of pixels, each within 0.0101, where a walk stops one pair
+    apart); the contacts equal (the same ops on the same inputs)."""
+    from manus_tpu_torch.config import composite_config
+    from manus_tpu_torch.data.synthetic import (
+        gt_object_gaussians,
+        hemisphere_cameras,
+        procedural_skeleton,
+        sample_gaussians_on_bones,
+    )
+    from manus_tpu_torch.data.voxel import build_voxel_grid
+    from manus_tpu_torch.models.gaussians import init_gaussian_model
+    from manus_tpu_torch.ops.skinning import bone_deformation_transforms
+    from manus_tpu_torch.train.composite import (
+        CompositeModels,
+        make_composite_render,
+    )
+
+    skel = procedural_skeleton(2)
+    pts, cols = sample_gaussians_on_bones(
+        skel["rest_heads"], skel["rest_tails"], skel["rest_transforms"], 150,
+        seed=0)
+    kp = np.concatenate([skel["rest_heads"][:1], skel["rest_tails"]])
+    center = skel["rest_heads"].mean(0)
+    og = gt_object_gaussians(3000, seed=3)
+    models = CompositeModels(
+        hand=init_gaussian_model(pts, cols, 4096, device=dev),
+        obj=init_gaussian_model(og["means"] * 0.12 + center, og["colors"],
+                                3072, device=dev),
+        voxel_grid=build_voxel_grid(kp, res=24, num_bones=len(skel["bnames"]),
+                                    device=dev))
+    cams = hemisphere_cameras(2, 128, 128, dist=0.45, center=center,
+                              device=dev)
+    t = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
+    bone_tf = bone_deformation_transforms(
+        t(skel["pose_transforms"][1]), t(skel["rest_transforms"]),
+        append_identity=True)
+    acc = torch.zeros(4096, device=dev)
+    aux = torch.rand(4096, 3, device=dev)
+    out = {}
+    for backend in ("cuda", "torch"):
+        fn = make_composite_render(composite_config(),
+                                   RasterConfig(backend=backend), "results")
+        calls = composite.composite_fwd_cuda.launches
+        out[backend] = fn(models, bone_tf, cams[0], cams[1],
+                          torch.zeros(3, device=dev), acc, aux)
+        launched = composite.composite_fwd_cuda.launches - calls
+        assert launched == (4 if backend == "cuda" else 0)
+    (rk, ak, dk), (rp, ap, dp) = out["cuda"], out["torch"]
+    assert rk.shape == (128, 512, 3)
+    assert torch.equal(dk, dp) and torch.equal(ak, ap)
+    assert (dk > 0).sum() > 0
+    err = (rk - rp).abs().amax(-1)
+    assert err.max() <= 0.0101 and (err > 1e-4).float().mean() <= 1e-3
+    assert rk[:, :128].amax() > 0  # the rgb panel shows the scene

@@ -303,8 +303,16 @@ def test_dump_image_round_trips_through_pil(tmp_path):
     dump_image(u8, str(tmp_path / "y.png"))
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "y.png")),
                                   u8)
+    # greyscale and RGBA too (the contact evaluation's masks and photos)
+    dump_image(u8[..., 0], str(tmp_path / "g.png"))
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "g.png")),
+                                  u8[..., 0])
+    rgba = rng.randint(0, 256, (5, 9, 4)).astype(np.uint8)
+    dump_image(rgba, str(tmp_path / "r.png"))
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "r.png")),
+                                  rgba)
     with pytest.raises(ValueError):
-        dump_image(np.zeros((4, 4, 4)), str(tmp_path / "z.png"))
+        dump_image(np.zeros((4, 4, 2)), str(tmp_path / "z.png"))
 
 
 def test_prefetch_loader_keeps_order_reraises_and_joins():
