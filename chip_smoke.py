@@ -1,5 +1,6 @@
 """Run the PyTorch port on one NVIDIA card: the HAND_GAUSSIAN training step
-and its kernels, the training CLI, and the contact stage (COMPOSITE).
+and its kernels, the training CLI, the render, test and pose entry points
+with the preprocessing pipeline, and the contact stage (COMPOSITE).
 
     python3 chip_smoke.py
 
@@ -83,6 +84,27 @@ Phases, each of which exits non-zero on failure:
      directory with checkpoint=best for TRAINER_RESUME_STEPS steps. The
      run's checkpoints and PLYs (about 0.8 GB) are deleted afterwards;
      its config, CSVs and images stay;
+ 11. render (runs after 9 and before 10, on phase 9's hand, into
+     chiprun_out/render/): through the CLI, make_path writes a
+     PATH_FRAMES-camera orbit at 512x512 (it loads back through
+     load_camera_path); render_path sweeps it, kernel 1 launched once a
+     frame, frame 0 through the kernel against the plain composite, the
+     video read back equal to the frames; test with worst_cases (one
+     render a frame besides the dataset's gt renders, worst_cases.json
+     ranked ascending, PSNRs finite, their mean within TEST_PSNR_DB of
+     phase 9's last validation), then test_on_canonical_pose over
+     CANO_FRAMES frames;
+     make_pose's pkl loads back through load_skeleton. Then the
+     preprocessing pipeline through its CLI in process on a capture of a
+     20-bone hand (hand20_skeleton) by PIPE_VIEWS cameras over
+     PIPE_FRAMES frames with noise and outliers (see PIPE_*), its IK
+     iterations under torch.cuda.set_sync_debug_mode("error"), its first
+     frames against the CPU; and lpips_distance with its image gradient
+     on the xla, xla_dx and xla_dx_bf16 engines at 512x512 against the
+     layout chain, with the head kernels' fp32 form against the plain
+     head on this input. Times: ms a path frame, triangulation ms, IK ms
+     an iteration and s a frame, each engine's ms. Its videos are
+     deleted after the checks;
  10. composite: the contact stage through the CLI at full width. An
      OBJ_GAUSSIAN object trained through the CLI (131,072 slots, 512x512,
      20 cameras, 65,536 init points, OBJECT_STEPS steps with the densify
@@ -92,9 +114,12 @@ Phases, each of which exits non-zero on failure:
      nothing as trained); then COMPOSITE at 512x512 over
      COMPOSITE_FRAMES frames of COMPOSITE_VIEWS cameras in each
      contact_render_type (results, gt_eval, then acc_gt_eval on the
-     gt_eval run's contacts, nocs) and once with optimize_hand and
-     FINETUNE_STEPS fine-tune steps. Checks: acc_contacts.npy finite in
-     [0, frames], a PNG a frame, composite_fwd launched once a gt render,
+     gt_eval run's contacts, nocs), once with optimize_hand and
+     FINETUNE_STEPS fine-tune steps, and once in results along phase 11's
+     camera path. Checks: acc_contacts.npy finite in [0, frames], a PNG
+     a frame and the run's video equal to them frame for frame (then
+     deleted), the path run's frames not the rig's, composite_fwd
+     launched once a gt render,
      panel and step and composite_bwd once a step; frame 0's contact
      maps both ways against float64 on the CPU on CONTACT_ROWS rows; a
      results frame through the kernels against the plain composite;
@@ -135,9 +160,11 @@ from manus_tpu_torch.config import (
     apply_overrides,
     composite_config,
     hand_config,
+    load_config_snapshot,
 )
 from manus_tpu_torch.data.synthetic import (
     hemisphere_cameras,
+    load_skeleton,
     perturb_model,
     procedural_skeleton,
     sample_gaussians_on_bones,
@@ -165,6 +192,10 @@ from manus_tpu_torch.ops.rasterizer.payload import NUM_LIVE, build_payload
 from manus_tpu_torch.ops.rasterizer.projection import TILE, project_gaussians
 from manus_tpu_torch.ops.skinning import bone_deformation_transforms
 from manus_tpu_torch import main as cli
+from manus_tpu_torch.preprocess import ik as ik_mod
+from manus_tpu_torch.preprocess import pipeline as pipeline_mod
+from manus_tpu_torch.preprocess.novel_pose import generate_flexion_sequence
+from manus_tpu_torch.preprocess.triangulate import batch_triangulate
 from manus_tpu_torch.train import checkpoint as ckpt_mod
 from manus_tpu_torch.train import lpips as lpips_mod
 from manus_tpu_torch.train.baselines import (
@@ -187,7 +218,12 @@ from manus_tpu_torch.train.workloads import (
 from manus_tpu_torch.utils import cuda_build
 from manus_tpu_torch.utils.camera import index_camera, stack_cameras
 from manus_tpu_torch.utils.colormap import apply_colormap
-from manus_tpu_torch.utils.io import dump_image, read_png
+from manus_tpu_torch.utils.io import (
+    dump_image,
+    load_camera_path,
+    read_png,
+    read_video,
+)
 
 CAPACITY, WIDTH, HEIGHT, VIEWS = 65536, 512, 512, 1
 STEPS, WARMUP = 20, 3
@@ -295,14 +331,60 @@ OBJECT_ARGS = [
 ]
 COMPOSITE_SIZE, COMPOSITE_FRAMES, COMPOSITE_VIEWS, FINETUNE_STEPS = (
     512, 8, 8, 100)
+# The render phase (11): a PATH_FRAMES-camera orbit at 512x512 from
+# make_path, which the composite phase's "path" run sweeps too.
+RENDER_DIR = os.path.join("chiprun_out", "render")
+PATH_PKL = os.path.join(RENDER_DIR, "path.pkl")
+PATH_FRAMES, CANO_FRAMES = 60, 8
+# The test epoch's mean PSNR over every frame (the train frames too, one
+# view each, unmasked) against phase 9's last validation (the held-out
+# frame, masked): within TEST_PSNR_DB. A frame's PSNR swings with how
+# much of its view the hand fills (30-41 dB in the first chip run).
+TEST_PSNR_DB = 5.0
 # (experiment, contact_render_type, overrides): acc_gt_eval renders the
-# contacts the gt_eval run of its experiment saved
+# contacts the gt_eval run of its experiment saved; "path" sees each
+# frame from the camera path of phase 11
 COMPOSITE_RUNS = [
     ("results", "results", []), ("eval", "gt_eval", []),
     ("eval", "acc_gt_eval", []), ("nocs", "nocs", []),
     ("finetune", "results", ["optimize_hand=true",
                              f"finetune_steps={FINETUNE_STEPS}"]),
+    ("path", "results", [f"camera_path={PATH_PKL}"]),
 ]
+# The preprocessing pipeline at a capture's width: a 20-bone hand seen by
+# PIPE_VIEWS hemisphere cameras at 512x512 (3 m away, a 549 px focal:
+# 1 px is ~5.5 mm there) over PIPE_FRAMES frames of a flexion cycle,
+# +-PIPE_NOISE px of uniform noise on every keypoint and, in each frame,
+# PIPE_OUTLIER_PX on PIPE_OUTLIER_JOINTS joints of 2 views; PIPE_ITERS IK
+# iterations a frame (the CLI's default). Cut: 32 frames, not a
+# sequence's hundreds. Checks: triangulated keypoints with at most one
+# outlier view within PIPE_TRI_TOL of the truth (the noise over 100
+# equations; 1.77 mm measured on the CPU), every frame's IK loss (the
+# weighted mean squared keypoint error, m^2) under PIPE_IK_LOSS (~3 mm
+# RMS) plus what the truth itself scores against the triangulated
+# keypoints (2 x their mean squared error: a keypoint whose two outlier
+# views are kept is off by ~1.5 cm), the first PIPE_CPU_FRAMES frames on the
+# CPU: triangulation within PIPE_CPU_TRI (two SVD libraries) and the IK
+# keypoints within PIPE_CPU_KP (IK is chaotic past ~50 iterations: the
+# solutions differ within the fit's noise).
+PIPE_VIEWS, PIPE_FRAMES, PIPE_NOISE, PIPE_ITERS = 50, 32, 1.0, 300
+PIPE_OUTLIER_PX, PIPE_OUTLIER_JOINTS = 50.0, 3
+PIPE_TRI_TOL, PIPE_IK_LOSS = 2.5e-3, 1e-5
+PIPE_CPU_FRAMES, PIPE_CPU_TRI, PIPE_CPU_KP = 4, 1e-5, 2e-3
+# fp32 head kernel's form against the plain head: the forward's sum in
+# another order (1e-5 relative), the gradients fp32 (1e-5 of the largest)
+HEAD_F32_RTOL = 1e-5
+# The LPIPS engines against the layout chain: fp32 (or differently
+# rounded bf16) activations against the chain's bf16 ones through 13
+# layers move the distance by a few bf16 roundings (2^-6 relative; 2-3e-3
+# measured on the CPU at 128-256 px, 9.1e-3 on the card at 512x512) and
+# turn its image gradient by the ReLU masks that flip (cosine 0.994-0.996
+# on the CPU, 0.9926 on the card). Each engine's own arithmetic is held
+# tighter: xla against xla_dx (the same fp32 math, its backward by
+# autograd or by hand) and xla_dx against itself on the CPU, fp32 sums in
+# another order.
+ENGINE_REL, ENGINE_COS = 2.0 ** -6, 0.98
+FP32_REL, FP32_COS, FP32_NORM = 1e-4, 0.9999, 1e-3
 # query rows of each direction held to float64; the baseline mesh (an
 # icosphere of 162 vertices, 10,242 after the baseline's 3 subdivisions;
 # MANO's 778 give 49,000) and its posed frames (the CPU's contacts, its
@@ -1716,6 +1798,13 @@ def composite_phase(dev, hand_run_dir):
         pngs = [f for f in os.listdir(_ours_dir(exp)) if f.endswith(".png")]
         check(len(pngs) == frames, f"composite {mode}: {len(pngs)} PNGs for "
               f"{frames} frames")
+        video = read_video(run.video)
+        check(len(video) == frames and all(
+            np.array_equal(v, read_png(os.path.join(_ours_dir(exp),
+                                                    f"{f:04d}.png")))
+            for v, f in zip(video, run.frames)),
+            f"composite {mode}: {run.video} is not its PNG frames")
+        os.remove(run.video)
         if steps:
             ft_ms = run.finetune_s / steps * 1e3
             first, last = (statistics.mean(run.finetune_loss[sl])
@@ -1723,6 +1812,12 @@ def composite_phase(dev, hand_run_dir):
             print(f"composite fine-tune (optimize_hand): {steps} steps, "
                   f"{ft_ms:.3f} ms/step; loss mean of the first 10 steps "
                   f"{first:.6f}, of the last 10 {last:.6f}")
+
+    # the path run saw its frames from the camera path, not the rig
+    check(not np.array_equal(
+        read_png(os.path.join(_ours_dir("path"), "0000.png")),
+        read_png(os.path.join(_ours_dir("results"), "0000.png"))),
+        "composite: the camera-path run rendered the rig's cameras")
 
     res = runs["results"]
     hand, obj, vg = res.models
@@ -1944,6 +2039,393 @@ def composite_phase(dev, hand_run_dir):
     return total
 
 
+def hand20_skeleton() -> dict:
+    """A 20-bone hand in preprocess.ik.default_hand_dof's layout, from
+    fixed numbers (metres, the wrist at the origin, fingers along +y):
+    bones 0-3 the thumb from the wrist, then four fingers of metacarpal,
+    proximal, middle and distal bones, each finger a chain from the
+    wrist. Its 21 keypoints are the wrist and the 20 tails."""
+    names, parents, heads, tails = [], [], [], []
+    thumb = [[0, 0, 0], [0.025, 0.02, 0.005], [0.045, 0.045, 0.01],
+             [0.06, 0.065, 0.012], [0.072, 0.085, 0.013]]
+    for i in range(4):
+        names.append(f"thumb_{i}")
+        parents.append(-1 if i == 0 else i - 1)
+        heads.append(thumb[i])
+        tails.append(thumb[i + 1])
+    for k, (x, lens) in enumerate([(0.025, [0.07, 0.04, 0.025, 0.02]),
+                                   (0.005, [0.075, 0.045, 0.028, 0.022]),
+                                   (-0.015, [0.07, 0.042, 0.026, 0.02]),
+                                   (-0.033, [0.065, 0.032, 0.02, 0.018])]):
+        base, y = len(names), 0.0
+        for j, length in enumerate(lens):
+            names.append(f"finger{k}_{j}")
+            parents.append(-1 if j == 0 else base + j - 1)
+            heads.append([x if j else 0.0, y, 0.0])
+            y += length
+            tails.append([x, y, 0.0])
+    heads = np.asarray(heads, np.float32)
+    tails = np.asarray(tails, np.float32)
+    rest = np.tile(np.eye(4, dtype=np.float32), (20, 1, 1))
+    rest[:, :3, 3] = heads
+    return dict(bnames=names, parents=np.asarray(parents),
+                bnames_parent=["None" if p < 0 else names[p]
+                               for p in parents],
+                rest_transforms=rest, rest_heads=heads, rest_tails=tails)
+
+
+def pipeline_capture(dev):
+    """The capture of the pipeline check: its keypoints2d [F, V, 21, 3],
+    projections [V, 3, 4], the true keypoints [F, 21, 3], the number of
+    views with an outlier on each keypoint [F, 21] and the skeleton. The
+    two views of a frame draw their joints independently, so a joint may
+    carry an outlier in both."""
+    skel = hand20_skeleton()
+    seq = generate_flexion_sequence(skel, num_frames=PIPE_FRAMES,
+                                    device=dev)
+    truth = np.concatenate([seq["pose_heads"][:, :1], seq["pose_tails"]],
+                           axis=1).astype(np.float64)
+    cams = hemisphere_cameras(PIPE_VIEWS, 512, 512, seed=3, device="cpu")
+    P = np.stack([c.K.double().numpy() @ c.extr.double().numpy()[:3]
+                  for c in cams])
+    homo = np.concatenate([truth, np.ones(truth.shape[:2] + (1,))], -1)
+    proj = np.einsum("vab,fjb->fvja", P, homo)
+    rng = np.random.RandomState(7)
+    xy = proj[..., :2] / proj[..., 2:] + rng.uniform(
+        -PIPE_NOISE, PIPE_NOISE, proj.shape[:-1] + (2,))
+    n_out = np.zeros((PIPE_FRAMES, 21), np.int64)
+    for f in range(PIPE_FRAMES):
+        for v in rng.choice(PIPE_VIEWS, 2, replace=False):
+            joints = rng.choice(21, PIPE_OUTLIER_JOINTS, replace=False)
+            n_out[f, joints] += 1
+            xy[f, v, joints] += PIPE_OUTLIER_PX * np.stack(
+                [np.cos(a := rng.uniform(0, 2 * np.pi, len(joints))),
+                 np.sin(a)], -1)
+    kp2d = np.concatenate([xy, np.ones(xy.shape[:-1] + (1,))], -1)
+    return kp2d.astype(np.float32), P.astype(np.float32), truth, n_out, skel
+
+
+def pipeline_check(dev):
+    """The preprocessing pipeline through its CLI in process, on the card
+    (docstring phase 11, item 5). Returns its times."""
+    kp2d, P, truth, n_out, skel = pipeline_capture(dev)
+    src = os.path.join(RENDER_DIR, "capture.npz")
+    out_npz = os.path.join(RENDER_DIR, "pose.npz")
+    np.savez(src, keypoints2d=kp2d, projections=P,
+             bnames=np.asarray(skel["bnames"]), parents=skel["parents"],
+             rest_matrices=skel["rest_transforms"], heads=skel["rest_heads"],
+             tails=skel["rest_tails"])
+    loop, guarded_runs = ik_mod.adabelief_loop, []
+
+    def guarded(*args, **kw):  # every frame's iterations: no host sync
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = loop(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        guarded_runs.append(out[1].device.type)
+        return out
+
+    ik_mod.adabelief_loop = guarded
+    try:
+        res = pipeline_mod.main([src, out_npz, "--max-iter",
+                                 str(PIPE_ITERS)])
+    finally:
+        ik_mod.adabelief_loop = loop
+    t = res["timings"]
+    # iterative_triangulate drops one view a pass, the one whose removal
+    # lowers the joint's worst reprojection error most: one outlier view
+    # goes, but with two of equal size dropping a clean view can lower
+    # the worst error as much, and the joint keeps them (the JAX
+    # package's algorithm; ROADMAP Queue C). Those joints are reported.
+    err = np.abs(res["keypoints3d"][..., :3] - truth).max(-1)
+    tri_err = err[n_out <= 1].max()
+    two_err = err[n_out == 2].max(initial=0.0)
+    plain = batch_triangulate(torch.as_tensor(kp2d, device=dev),
+                              torch.as_tensor(P, device=dev)).cpu().numpy()
+    plain_err = np.abs(plain[..., :3] - truth).max()
+    losses = res["ik_losses"]
+    sq = ((res["keypoints3d"][..., :3] - truth) ** 2).sum(-1).mean(-1)
+    loss_bound = PIPE_IK_LOSS + 2 * sq
+    it_ms = t["ik_s"] / (PIPE_FRAMES * PIPE_ITERS) * 1e3
+    print(f"pipeline: {PIPE_FRAMES} frames x {PIPE_VIEWS} views x 21 "
+          f"keypoints at 512x512 through python -m "
+          f"manus_tpu_torch.preprocess.pipeline: triangulation "
+          f"{t['triangulate_s'] * 1e3:.1f} ms (all frames in one batch), "
+          f"largest error {tri_err * 1e3:.3f} mm at the keypoints with at "
+          f"most one outlier view, {two_err * 1e3:.3f} mm at the "
+          f"{int((n_out == 2).sum())} with two (kept, Queue C), the plain "
+          f"DLT with the outliers in {plain_err * 1e3:.1f} mm; IK "
+          f"{t['ik_s']:.2f} s, "
+          f"{t['ik_s'] / PIPE_FRAMES:.3f} s a frame, {it_ms:.3f} ms an "
+          f"iteration ({PIPE_ITERS} a frame, {len(guarded_runs)} loops "
+          f"under set_sync_debug_mode('error') on "
+          f"{sorted(set(guarded_runs))}); losses {losses.min():.3e} - "
+          f"{losses.max():.3e}; smoothing {t['smooth_s'] * 1e3:.1f} ms")
+    check(tri_err <= PIPE_TRI_TOL and plain_err > 2 * PIPE_TRI_TOL,
+          f"pipeline: triangulation {tri_err} m from the truth "
+          f"(outliers in the plain DLT: {plain_err} m)")
+    check(bool((losses < loss_bound).all()),
+          f"pipeline: IK losses {losses} over {loss_bound}")
+    check(bool(np.isfinite(res["angles_smooth"]).all()),
+          "pipeline: non-finite smoothed angles")
+    check(guarded_runs == ["cuda"] * PIPE_FRAMES,
+          f"pipeline: {len(guarded_runs)} guarded IK loops")
+
+    # the first frames again on the CPU, from the card's inputs: the
+    # triangulation from the same 2D keypoints, the IK from the card's
+    # triangulated keypoints and bone lengths, warm-started alike
+    n = PIPE_CPU_FRAMES
+    tri = np.abs(pipeline_mod.triangulate_sequence(kp2d[:n], P, device="cpu")
+                 - res["keypoints3d"][:n]).max()
+    chain = ik_mod.make_chain(skel["bnames"], skel["parents"],
+                              skel["rest_transforms"], skel["rest_heads"],
+                              skel["rest_tails"], res["bone_lengths"])
+    trans_c, angles_c, losses_c = pipeline_mod.fit_sequence(
+        chain, res["keypoints3d"][:n], max_iter=PIPE_ITERS, device="cpu")
+    kps = [np.stack([ik_mod.chain_forward(
+        chain, torch.as_tensor(tr[f]), torch.as_tensor(an[f]))[0].numpy()
+        for f in range(n)])
+        for tr, an in ((trans_c, angles_c),
+                       (res["trans"][:n], res["angles"][:n]))]
+    kp_err = np.abs(kps[0] - kps[1]).max()
+    print(f"pipeline: the first {n} frames again on the CPU: triangulation "
+          f"within {tri:.3e} m of the card's, IK keypoints within "
+          f"{kp_err * 1e3:.4f} mm, losses {losses_c} / {losses[:n]}")
+    check(tri <= PIPE_CPU_TRI and kp_err <= PIPE_CPU_KP
+          and bool((losses_c < loss_bound[:n]).all()),
+          "pipeline: the CPU and the card disagree")
+    return dict(triangulate_ms=t["triangulate_s"] * 1e3,
+                ik_ms_per_iter=it_ms, ik_s_per_frame=t["ik_s"] / PIPE_FRAMES)
+
+
+def engines_check(img, dev):
+    """lpips_distance and its image gradient at 512x512 on the xla, xla_dx
+    and xla_dx_bf16 engines, on a render and a noisy copy of it (as phase
+    6's inputs), against the layout chain on the card (the random-feature
+    VGG16 of LPIPS_SEED) within ENGINE_REL and ENGINE_COS, xla against
+    xla_dx and xla_dx against itself on the CPU within FP32_*, with each
+    engine's ms; then the head kernel's fp32 form against the plain head
+    on the xla_dx features of this input."""
+    params = lpips_mod.random_lpips_params(LPIPS_SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    noisy = (img + 0.1 * torch.randn(img.shape, device=dev, generator=gen)
+             ).clamp(0, 1)
+
+    def value_and_grad(engine, p=params, a=noisy, b=img):
+        x = a.detach().clone().requires_grad_(True)
+        d = lpips_mod.lpips_distance(p, x, b, engine)
+        (g,) = torch.autograd.grad(d, [x])
+        return d.item(), g.float().reshape(-1)
+
+    def agree(d, g, d_ref, g_ref):
+        cos = (g @ g_ref / (g.norm() * g_ref.norm())).item()
+        return (abs(d - d_ref) / d_ref, cos,
+                abs(g.norm().item() / g_ref.norm().item() - 1))
+
+    d_ref, g_ref = value_and_grad("pallas")
+    out, fp32 = {}, {}
+    for engine in ("xla", "xla_dx", "xla_dx_bf16"):
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        d, g = value_and_grad(engine)
+        heads = (conv_mod.head_fwd_cuda.launches,
+                 conv_mod.head_bwd_cuda.launches)
+        if engine != "xla_dx_bf16":
+            fp32[engine] = (d, g)
+        rel, cos, norm_err = agree(d, g, d_ref, g_ref)
+        out[engine] = cuda_ms(lambda: value_and_grad(engine), 5)
+        print(f"lpips engine {engine} 512x512: {d:.7f} against the layout "
+              f"chain's {d_ref:.7f}, rel err {rel:.3e} (<= {ENGINE_REL:.3e})"
+              f"; gradient cosine {cos:.6f} (>= {ENGINE_COS}), norm error "
+              f"{norm_err:.3e} (<= {GRAD_NORM_RTOL}); {out[engine]:.3f} ms "
+              f"distance and gradient; head kernel launches fwd/bwd {heads}")
+        check(rel <= ENGINE_REL and cos >= ENGINE_COS
+              and norm_err <= GRAD_NORM_RTOL,
+              f"lpips engine {engine} disagrees with the layout chain")
+        check(heads == ((0, 0) if engine == "xla" else (5, 5)),
+              f"lpips engine {engine}: head launches {heads}")
+    rel, cos, norm_err = agree(*fp32["xla"], *fp32["xla_dx"])
+    print(f"lpips engine xla against xla_dx: rel err {rel:.3e}, gradient "
+          f"cosine {cos:.7f}, norm error {norm_err:.3e}")
+    check(rel <= FP32_REL and cos >= FP32_COS and norm_err <= FP32_NORM,
+          "lpips engines xla and xla_dx disagree")
+    out["pallas"] = cuda_ms(lambda: value_and_grad("pallas"), 5)
+    print(f"lpips engine pallas (the layout chain) 512x512: "
+          f"{out['pallas']:.3f} ms distance and gradient")
+    t0 = time.perf_counter()
+    cpu = {k: v.cpu() for k, v in params.items()}
+    d_c, g_c = value_and_grad("xla_dx", cpu, noisy.cpu(), img.cpu())
+    d, g = value_and_grad("xla_dx")
+    rel, cos, norm_err = agree(d, g.cpu(), d_c, g_c)
+    print(f"lpips engine xla_dx on the card against the CPU: {d:.7f} / "
+          f"{d_c:.7f}, rel err {rel:.3e}, gradient cosine {cos:.7f}, norm "
+          f"error {norm_err:.3e}; {time.perf_counter() - t0:.1f} s")
+    check(rel <= FP32_REL and cos >= FP32_COS and norm_err <= FP32_NORM,
+          "lpips engine xla_dx: the card disagrees with the CPU")
+    img1, img2 = noisy, img
+
+    # the fp32 head form at this path's shapes, against the plain head
+    with torch.no_grad():
+        fa = lpips_mod.vgg16_features_xla_dx(params, img1 * 2 - 1)
+        fb = lpips_mod.vgg16_features_xla_dx(params, img2 * 2 - 1)
+    worst, rows = 0.0, []
+    for k, (a, b) in enumerate(zip(fa, fb)):
+        c = a.shape[-1]
+        a, b = a.reshape(-1, c).contiguous(), b.reshape(-1, c).contiguous()
+        lin = params[f"lin{k}_w"].float() * (1.0 / a.shape[0])
+        rows.append((a, b, lin))
+        got = conv_mod.head_fwd_cuda(a, b, lin).item()
+        want = conv_mod.head_fwd_torch(a, b, lin).item()
+        ct = torch.ones((), device=dev)
+        da, db = conv_mod.head_bwd_cuda(a, b, lin, ct)
+        da_p, db_p = conv_mod.head_bwd_torch(a, b, lin)
+        errs = [abs(got - want) / abs(want)] + [
+            ((x - y).abs().max() / y.abs().max()).item()
+            for x, y in ((da, da_p), (db, db_p))]
+        worst = max(worst, *errs)
+        check(max(errs) <= HEAD_F32_RTOL,
+              f"head fp32 stage {k}: errors {errs}")
+    # the fp32 form's 5-launch sweeps: the features (256 MB of a and b,
+    # five times the L2) are read from HBM on every launch
+    ct = torch.ones((), device=dev)
+    n_el = sum(a.numel() for a, _, _ in rows)
+    fwd_ms = cuda_ms(lambda: [conv_mod.head_fwd_cuda(a, b, lin)
+                              for a, b, lin in rows], 5)
+    bwd_ms = cuda_ms(lambda: [conv_mod.head_bwd_cuda(a, b, lin, ct)
+                              for a, b, lin in rows], 5)
+    fwd_plain = cuda_ms(lambda: [conv_mod.head_fwd_torch(a, b, lin)
+                                 for a, b, lin in rows], 3)
+    bwd_plain = cuda_ms(lambda: [conv_mod.head_bwd_torch(a, b, lin)
+                                 for a, b, lin in rows], 3)
+    fwd_bound = bound_ms(8 * n_el, HEAD_FWD_FLOP * n_el, FP32_FLOP_PER_S)
+    bwd_bound = bound_ms(16 * n_el, HEAD_BWD_FLOP * n_el, FP32_FLOP_PER_S)
+    print(f"head kernels' fp32 form on the xla_dx features at 512x512, 5 "
+          f"stages: largest relative error {worst:.3e} (<= {HEAD_F32_RTOL});"
+          f" sweep of 5 launches, forward {fwd_ms:.4f} ms (plain "
+          f"{fwd_plain:.4f}, bound {fwd_bound[0]:.4f}, bytes), backward "
+          f"with da and db {bwd_ms:.4f} ms (plain {bwd_plain:.4f}, bound "
+          f"{bwd_bound[0]:.4f}, bytes)")
+    out.update(head_f32_fwd_ms=fwd_ms, head_f32_bwd_ms=bwd_ms,
+               head_f32_fwd_bound_ms=fwd_bound[0],
+               head_f32_bwd_bound_ms=bwd_bound[0],
+               head_f32_fwd_plain_ms=fwd_plain,
+               head_f32_bwd_plain_ms=bwd_plain)
+    return out
+
+
+def render_phase(dev, hand_run_dir, val_psnr):
+    """The render, test and pose entry points through the CLI on phase 9's
+    hand, the pipeline at a capture's width, and the LPIPS engines
+    (docstring phase 11). val_psnr: phase 9's last validation PSNR.
+    Returns the composite forward's launches on this phase's path."""
+    shutil.rmtree(RENDER_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    ckpts = os.path.join(hand_run_dir, "checkpoints")
+    base = ["--config-name", hand_run_dir, f"trainer.output_dir={RENDER_DIR}",
+            "trainer.exp_name=hand", f"render_ckpt_dir={ckpts}",
+            f"camera_path={PATH_PKL}"]
+
+    cfg = load_config_snapshot(hand_run_dir)
+    size = (cfg.dataset.width, cfg.dataset.height)
+    path, _, _, _, _ = _run_cli([*base, "trainer.mode=make_path",
+                                 f"render_frames={PATH_FRAMES}"])
+    cams = load_camera_path(path, *size, device=dev)
+    check(len(cams) == PATH_FRAMES, f"make_path: {len(cams)} cameras")
+
+    run, launches, _, peak, wall = _run_cli([
+        *base, "trainer.mode=render_path", f"render_frames={PATH_FRAMES}"])
+    path_fwd = launches["composite_fwd"]
+    ms = [x * 1e3 for x in run.frame_s]
+    lit = float(np.mean([(f.max(-1) > 0).mean() for f in run.frames]))
+    print(f"render_path: {len(run.frames)} frames at {size[0]}x{size[1]} in "
+          f"{wall:.1f} s "
+          f"through the CLI; ms a frame (render, copy to the host) median "
+          f"{statistics.median(ms):.3f} (first {ms[0]:.3f}, max "
+          f"{max(ms):.3f}); {lit:.4f} of the pixels lit; peak {peak:.1f} "
+          f"MiB; launches {launches}; video {run.video} "
+          f"({os.path.getsize(run.video) / 2**20:.1f} MiB)")
+    check(path_fwd == PATH_FRAMES and all(
+        launches[n] == 0 for n in COUNTERS if n != "composite_fwd"),
+          f"render_path: launches {launches}")
+    check(lit > 0.005, "render_path: the hand is not in the frames")
+    video = read_video(run.video)
+    check(len(video) == PATH_FRAMES and all(
+        np.array_equal(a, b) for a, b in zip(video, run.frames)),
+        "render_path: the video does not read back equal to the frames")
+
+    # one path frame through the kernel against the plain composite
+    model, vg = cli._load_model(ckpts, dev)
+    raster = make_raster_config(cfg)
+    imgs = {}
+    for backend in ("cuda", "torch"):
+        render_one = cli._make_render_one(cfg, model, vg,
+                                          raster._replace(backend=backend))
+        imgs[backend] = render_one(cams[0], None)[0]
+    err = (imgs["cuda"] - imgs["torch"]).abs().amax(-1)
+    flips = int((err > FWD_ATOL).sum())
+    print(f"render_path frame 0, the kernel against the plain composite: "
+          f"max abs err {err.max().item():.3e}, {flips} of {err.numel()} "
+          f"pixels beyond {FWD_ATOL}")
+    check(err.max().item() <= FLIP_ATOL and flips <= FLIP_SHARE * err.numel(),
+          "render_path: the kernel's frame disagrees with the plain one")
+
+    trun, tl, _, tpeak, twall = _run_cli([*base, "trainer.mode=test",
+                                          "dataset.worst_cases=true"])
+    n_gt = cfg.dataset.num_frames * cfg.dataset.num_cameras
+    with open(trun.worst_cases) as f:
+        ranked = json.load(f)
+    psnrs = [r["psnr"] for r in trun.records]
+    print(f"test (worst_cases): {len(trun.records)} frames in {twall:.1f} s, "
+          f"ms a frame median {statistics.median(trun.frame_s) * 1e3:.3f}; "
+          f"psnr {[round(x, 3) for x in psnrs]} (phase 9's last val psnr "
+          f"{val_psnr:.3f}); worst {ranked[0]}; launches {tl} ({n_gt} gt "
+          f"renders and one a frame); peak {tpeak:.1f} MiB")
+    check(tl["composite_fwd"] == n_gt + len(trun.records),
+          f"test: {tl['composite_fwd']} composite launches")
+    check([r["psnr"] for r in ranked] == sorted(psnrs),
+          "test: worst_cases.json is not ranked ascending")
+    mean_psnr = statistics.mean(psnrs)
+    check(all(math.isfinite(x) for x in psnrs)
+          and abs(mean_psnr - val_psnr) < TEST_PSNR_DB,
+          f"test: psnrs {psnrs} (mean {mean_psnr}) against the val psnr "
+          f"{val_psnr}")
+    crun, cl, _, _, cwall = _run_cli([*base, "trainer.mode=test",
+                                      "dataset.test_on_canonical_pose=true",
+                                      f"render_frames={CANO_FRAMES}"])
+    print(f"test (canonical pose): {len(crun.frames)} frames in "
+          f"{cwall:.1f} s, video {crun.video}; launches {cl}")
+    check(cl["composite_fwd"] == CANO_FRAMES and len(crun.frames) ==
+          CANO_FRAMES and crun.video.endswith("test_cano.apng"),
+          "test canonical: frames or launches")
+    check(all(np.array_equal(a, b) for a, b in zip(crun.frames,
+                                                   read_video(crun.video))),
+          "test canonical: the video does not read back")
+
+    pose_pkl = os.path.join(RENDER_DIR, "novel_pose.pkl")
+    got, _, _, _, _ = _run_cli([*base, "trainer.mode=make_pose",
+                                f"novel_pose_path={pose_pkl}",
+                                f"render_frames={PATH_FRAMES}"])
+    skel = load_skeleton(got)
+    print(f"make_pose: {got}, pose_transforms "
+          f"{skel['pose_transforms'].shape} loads back through load_skeleton")
+    check(skel["pose_transforms"].shape[0] == PATH_FRAMES
+          and np.isfinite(skel["pose_transforms"]).all(),
+          "make_pose: the pkl does not load back")
+
+    times = pipeline_check(dev)
+    engines = engines_check(
+        torch.as_tensor(run.frames[0], device=dev).float() / 255, dev)
+    for path_ in (run.video, trun.video, crun.video):
+        os.remove(path_)  # the frames were checked; keep the output small
+    print(f"render phase: {time.perf_counter() - t0:.1f} s")
+    return dict(path_fwd=path_fwd, test_fwd=tl["composite_fwd"],
+                cano_fwd=cl["composite_fwd"],
+                path_ms=statistics.median(ms), **times,
+                **{k if k.startswith("head") else f"lpips_{k}_ms": v
+                   for k, v in engines.items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2005,10 +2487,21 @@ def main() -> int:
 
     trainer_launches, hand_run_dir = trainer_phase(flagship_ms)
     launches.update(trainer_launches)
-    # this slice's main path: the COMPOSITE runs; the composite kernels'
-    # counts in the kernels line are theirs (the LPIPS kernels' the
-    # trainer's; the earlier paths' are on their own lines above)
+    _, vrows = _csv_rows(os.path.join(hand_run_dir, "results",
+                                      "val_results.csv"))
     try:
+        # phase 11's path: render_path and test run kernel 1, counted on
+        # a line of their own (the kernels line keeps the COMPOSITE runs')
+        rend = render_phase(dev, hand_run_dir, float(vrows[-1][2]))
+        print(f"render phase launches: composite_fwd {rend['path_fwd']} "
+              f"(render_path, {PATH_FRAMES} frames), {rend['test_fwd']} "
+              f"(test worst_cases, gt renders included), "
+              f"{rend['cano_fwd']} (test canonical); composite_bwd 0; "
+              f"times {json.dumps(rend)}")
+        # the contact stage's path: the COMPOSITE runs; the composite
+        # kernels' counts in the kernels line are theirs (the LPIPS
+        # kernels' the trainer's; the earlier paths' are on their own
+        # lines above)
         comp_launches = composite_phase(dev, hand_run_dir)
     finally:
         for sub in ("checkpoints", os.path.join("results", "val_results",
@@ -2018,8 +2511,8 @@ def main() -> int:
                                    "obj"), ignore_errors=True)
         shutil.rmtree(os.path.join(COMPOSITE_DIR, "object_placed"),
                       ignore_errors=True)
-    print(f"composite phase launches over its five COMPOSITE runs: "
-          f"{comp_launches}")
+    print(f"composite phase launches over its {len(COMPOSITE_RUNS)} "
+          f"COMPOSITE runs: {comp_launches}")
     launches.update({n: comp_launches[n] for n in ("composite_fwd",
                                                    "composite_bwd")})
 

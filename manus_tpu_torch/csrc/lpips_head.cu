@@ -6,14 +6,17 @@
 // lpips_head_fwd_kernel replaces _head_fwd_kernel (_head_fwd_call),
 // lpips_head_bwd_kernel replaces _head_bwd_kernel (_head_bwd_call).
 //
-// Math, per row of the [rows, C] bf16 feature pair (a, b), in fp32:
+// Math, per row of the [rows, C] feature pair (a, b), bf16 or fp32, in fp32:
 //   ra = |a|, rb = |b| over the C channels, ea = ra + 1e-10, ia = 1 / ea,
 //   forward:  sum over rows and channels of (a ia - b ib)^2 lin[c]
 //   backward: g = 2 (lin ct) (a ia - b ib),
 //             da = g ia - a (a.g) / (safe(ra) ea^2),
 //             db = -(g ib - b (b.g) / (safe(rb) eb^2)), safe(r) = r > 0 ? r : 1,
 //   where ct is the cotangent of the forward's scalar, read on the card.
-//   da and db are bf16, the features' type.
+//   da and db are in the features' type. The fp32 form (the xla_dx LPIPS
+//   engine's features) is the same code with 8 channels in two 16-byte
+//   vectors instead of one, at 2 CTAs an SM (128 registers a thread)
+//   instead of 4; the numbers below are the bf16 form's.
 //
 // Pixel rows only. On a stage's layout the pixels lie in the row span
 // [lo, hi) = [m_blk, m_blk + n_valid); every row outside it is zero in a
@@ -70,10 +73,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// CTAs an SM holds of each kernel (the registers a thread may take follow
-// from it), and so the most CTAs of its grid: one wave.
+// CTAs an SM holds of each bf16 kernel (the registers a thread may take
+// follow from it), and so the most CTAs of its grid: one wave. The fp32
+// kernels hold kF32CtasPerSm.
 constexpr int kFwdCtasPerSm = 4;
 constexpr int kBwdCtasPerSm = 4;
+constexpr int kF32CtasPerSm = 2;
 // Rows a lane group loads at once at C <= 256 (half as many at C = 512).
 constexpr int kRowsInFlight = 2;
 constexpr int kMaxC = 512;
@@ -119,6 +124,44 @@ __device__ __forceinline__ uint4 reread(uint4 q) {
   return q;
 }
 
+// The features' type: how 8 channels are held, loaded, unpacked to floats
+// and packed back, and how many CTAs an SM holds.
+struct Bf16 {
+  using Vec = uint4;  // 8 bf16 channels
+  static constexpr int kFwdCtas = kFwdCtasPerSm, kBwdCtas = kBwdCtasPerSm;
+  __device__ __forceinline__ static Vec zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ static Vec load(const Vec* p) { return __ldg(p); }
+  __device__ __forceinline__ static void unpack(const Vec& q, float* f) { unpack8(q, f); }
+  __device__ __forceinline__ static Vec pack(const float* f) { return pack8(f); }
+  __device__ __forceinline__ static Vec opaque(const Vec& q) { return reread(q); }
+};
+
+struct F32 {
+  struct Vec {
+    uint4 lo, hi;  // 8 fp32 channels
+  };
+  static constexpr int kFwdCtas = kF32CtasPerSm, kBwdCtas = kF32CtasPerSm;
+  __device__ __forceinline__ static Vec zero() {
+    return {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
+  }
+  __device__ __forceinline__ static Vec load(const Vec* p) {
+    const uint4* u = reinterpret_cast<const uint4*>(p);
+    return {__ldg(u), __ldg(u + 1)};
+  }
+  __device__ __forceinline__ static void unpack(const Vec& q, float* f) {
+    const uint32_t w[8] = {q.lo.x, q.lo.y, q.lo.z, q.lo.w, q.hi.x, q.hi.y, q.hi.z, q.hi.w};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) f[k] = __uint_as_float(w[k]);
+  }
+  __device__ __forceinline__ static Vec pack(const float* f) {
+    return {make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                       __float_as_uint(f[3])),
+            make_uint4(__float_as_uint(f[4]), __float_as_uint(f[5]), __float_as_uint(f[6]),
+                       __float_as_uint(f[7]))};
+  }
+  __device__ __forceinline__ static Vec opaque(const Vec& q) { return {reread(q.lo), reread(q.hi)}; }
+};
+
 // Sum over a group of LANES lanes (a power of 2 up to 32) of a full warp.
 template <int LANES>
 __device__ __forceinline__ float group_sum(float v) {
@@ -136,7 +179,7 @@ __device__ __forceinline__ float unit_diff(float a, float ia, float b, float ib)
 
 // This lane's place: its row group, its lane in the group, and which of
 // its vectors hold channels (all of them unless C / 8 is no power of 2).
-template <class T>
+template <class T, class E>
 struct Lane {
   int group, lig;
   bool on[T::kVpl];
@@ -161,21 +204,21 @@ struct Lane {
 
   // The vectors of rows base + u kGroups + group, u < kUnroll, of x and y:
   // every load started before any is used; zeros past hi.
-  __device__ __forceinline__ void load(const uint4* __restrict__ x,
-                                       const uint4* __restrict__ y, int64_t base,
-                                       int hi, int nvec,
-                                       uint4 (&qx)[T::kUnroll][T::kVpl],
-                                       uint4 (&qy)[T::kUnroll][T::kVpl]) const {
+  __device__ __forceinline__ void load(const typename E::Vec* __restrict__ x,
+                                       const typename E::Vec* __restrict__ y,
+                                       int64_t base, int hi, int nvec,
+                                       typename E::Vec (&qx)[T::kUnroll][T::kVpl],
+                                       typename E::Vec (&qy)[T::kUnroll][T::kVpl]) const {
 #pragma unroll
     for (int u = 0; u < T::kUnroll; ++u) {
       const int64_t r = base + u * T::kGroups + group;
 #pragma unroll
       for (int j = 0; j < T::kVpl; ++j) {
-        qx[u][j] = qy[u][j] = make_uint4(0u, 0u, 0u, 0u);
+        qx[u][j] = qy[u][j] = E::zero();
         if (r < hi && on[j]) {
           const int64_t e = r * nvec + vec(j);
-          qx[u][j] = __ldg(x + e);
-          qy[u][j] = __ldg(y + e);
+          qx[u][j] = E::load(x + e);
+          qy[u][j] = E::load(y + e);
         }
       }
     }
@@ -183,9 +226,9 @@ struct Lane {
 };
 
 // Squared norms of the kUnroll rows of qa and qb, summed over the group.
-template <class T>
-__device__ __forceinline__ void row_norms(const uint4 (&qa)[T::kUnroll][T::kVpl],
-                                          const uint4 (&qb)[T::kUnroll][T::kVpl],
+template <class T, class E>
+__device__ __forceinline__ void row_norms(const typename E::Vec (&qa)[T::kUnroll][T::kVpl],
+                                          const typename E::Vec (&qb)[T::kUnroll][T::kVpl],
                                           float (&ra)[T::kUnroll],
                                           float (&rb)[T::kUnroll]) {
 #pragma unroll
@@ -194,8 +237,8 @@ __device__ __forceinline__ void row_norms(const uint4 (&qa)[T::kUnroll][T::kVpl]
 #pragma unroll
     for (int j = 0; j < T::kVpl; ++j) {
       float fa[8], fb[8];
-      unpack8(qa[u][j], fa);
-      unpack8(qb[u][j], fb);
+      E::unpack(qa[u][j], fa);
+      E::unpack(qb[u][j], fb);
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         sa = __fmaf_rn(fa[k], fa[k], sa);
@@ -217,31 +260,32 @@ int grid_size(int rows_per_step, int span, int ctas_per_sm, int sm_count) {
   return steps < ctas_per_sm * sm_count ? steps : ctas_per_sm * sm_count;
 }
 
-template <class T>
-__global__ void __launch_bounds__(kThreads, kFwdCtasPerSm) lpips_head_fwd_kernel(
-    const uint4* __restrict__ a, const uint4* __restrict__ b,
+template <class T, class E>
+__global__ void __launch_bounds__(kThreads, E::kFwdCtas) lpips_head_fwd_kernel(
+    const typename E::Vec* __restrict__ a, const typename E::Vec* __restrict__ b,
     const float* __restrict__ lin, int lo, int hi, int nvec,
     unsigned int* __restrict__ ticket, float* __restrict__ partials,
     float* __restrict__ out) {
+  using Vec = typename E::Vec;
   constexpr int U = T::kUnroll, V = T::kVpl;
-  const Lane<T> lane(nvec);
+  const Lane<T, E> lane(nvec);
   float w[V][8];
   lane.weights(lin, 1.0f, w);
   float acc = 0.0f;
   for (int64_t base = lo + (int64_t)blockIdx.x * T::kRows; base < hi;
        base += (int64_t)gridDim.x * T::kRows) {
-    uint4 qa[U][V], qb[U][V];
+    Vec qa[U][V], qb[U][V];
     lane.load(a, b, base, hi, nvec, qa, qb);
     float ra[U], rb[U];
-    row_norms<T>(qa, qb, ra, rb);
+    row_norms<T, E>(qa, qb, ra, rb);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const float ia = 1.0f / (ra[u] + kEps), ib = 1.0f / (rb[u] + kEps);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         float fa[8], fb[8];
-        unpack8(reread(qa[u][j]), fa);
-        unpack8(reread(qb[u][j]), fb);
+        E::unpack(E::opaque(qa[u][j]), fa);
+        E::unpack(E::opaque(qb[u][j]), fb);
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
           const float d = unit_diff(fa[k], ia, fb[k], ib);
@@ -279,11 +323,13 @@ __global__ void __launch_bounds__(kThreads, kFwdCtasPerSm) lpips_head_fwd_kernel
   }
 }
 
-template <class T>
-__global__ void __launch_bounds__(kThreads, kBwdCtasPerSm) lpips_head_bwd_kernel(
-    const uint4* __restrict__ a, const uint4* __restrict__ b,
+template <class T, class E>
+__global__ void __launch_bounds__(kThreads, E::kBwdCtas) lpips_head_bwd_kernel(
+    const typename E::Vec* __restrict__ a, const typename E::Vec* __restrict__ b,
     const float* __restrict__ lin, const float* __restrict__ ct, int rows,
-    int lo, int hi, int nvec, uint4* __restrict__ da, uint4* __restrict__ db) {
+    int lo, int hi, int nvec, typename E::Vec* __restrict__ da,
+    typename E::Vec* __restrict__ db) {
+  using Vec = typename E::Vec;
   constexpr int U = T::kUnroll, V = T::kVpl;
   const bool with_db = db != nullptr;
   // the rows outside the span: zeros, not read
@@ -292,11 +338,11 @@ __global__ void __launch_bounds__(kThreads, kBwdCtasPerSm) lpips_head_bwd_kernel
   for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < outside;
        i += (int64_t)gridDim.x * kThreads) {
     const int64_t e = i < lead ? i : i - lead + (int64_t)hi * nvec;
-    da[e] = make_uint4(0u, 0u, 0u, 0u);
-    if (with_db) db[e] = make_uint4(0u, 0u, 0u, 0u);
+    da[e] = E::zero();
+    if (with_db) db[e] = E::zero();
   }
 
-  const Lane<T> lane(nvec);
+  const Lane<T, E> lane(nvec);
   float w2[V][8];  // 2 (lin ct), as the plain version rounds it
   lane.weights(lin, *ct, w2);
 #pragma unroll
@@ -306,10 +352,10 @@ __global__ void __launch_bounds__(kThreads, kBwdCtasPerSm) lpips_head_bwd_kernel
   }
   for (int64_t base = lo + (int64_t)blockIdx.x * T::kRows; base < hi;
        base += (int64_t)gridDim.x * T::kRows) {
-    uint4 qa[U][V], qb[U][V];
+    Vec qa[U][V], qb[U][V];
     lane.load(a, b, base, hi, nvec, qa, qb);
     float ra[U], rb[U], ia[U], ib[U], dot_a[U], dot_b[U];
-    row_norms<T>(qa, qb, ra, rb);
+    row_norms<T, E>(qa, qb, ra, rb);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       ia[u] = 1.0f / (ra[u] + kEps);
@@ -318,8 +364,8 @@ __global__ void __launch_bounds__(kThreads, kBwdCtasPerSm) lpips_head_bwd_kernel
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         float fa[8], fb[8];
-        unpack8(reread(qa[u][j]), fa);
-        unpack8(reread(qb[u][j]), fb);
+        E::unpack(E::opaque(qa[u][j]), fa);
+        E::unpack(E::opaque(qb[u][j]), fb);
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
           const float g = __fmul_rn(w2[j][k], unit_diff(fa[k], ia[u], fb[k], ib[u]));
@@ -345,18 +391,18 @@ __global__ void __launch_bounds__(kThreads, kBwdCtasPerSm) lpips_head_bwd_kernel
         if (r >= hi || !lane.on[j]) continue;
         const int64_t e = r * nvec + lane.vec(j);
         float fa[8], fb[8], g[8], out[8];
-        unpack8(reread(qa[u][j]), fa);
-        unpack8(reread(qb[u][j]), fb);
+        E::unpack(E::opaque(qa[u][j]), fa);
+        E::unpack(E::opaque(qb[u][j]), fb);
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
           g[k] = __fmul_rn(w2[j][k], unit_diff(fa[k], ia[u], fb[k], ib[u]));
           out[k] = __fmaf_rn(-fa[k], ka, __fmul_rn(g[k], ia[u]));
         }
-        da[e] = pack8(out);
+        da[e] = E::pack(out);
         if (with_db) {
 #pragma unroll
           for (int k = 0; k < 8; ++k) out[k] = __fmaf_rn(fb[k], kb, -__fmul_rn(g[k], ib[u]));
-          db[e] = pack8(out);
+          db[e] = E::pack(out);
         }
       }
     }
@@ -381,30 +427,62 @@ bool valid(int rows, int c, int lo, int hi, int sm_count) {
          hi <= rows && sm_count > 0;
 }
 
+template <class E>
+int head_fwd(const void* a, const void* b, const float* lin, int rows, int c, int lo,
+             int hi, int sm_count, void* workspace, float* out, void* stream) {
+  if (!valid(rows, c, lo, hi, sm_count)) return (int)cudaErrorInvalidValue;
+  const int nvec = c / 8;
+  return with_tile(nvec, [&](auto tile) {
+    using T = decltype(tile);
+    using Vec = typename E::Vec;
+    unsigned int* ticket = static_cast<unsigned int*>(workspace);
+    const int grid = grid_size(T::kRows, hi - lo, E::kFwdCtas, sm_count);
+    lpips_head_fwd_kernel<T, E><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const Vec*>(a), static_cast<const Vec*>(b), lin, lo, hi, nvec,
+        ticket, reinterpret_cast<float*>(ticket + 1), out);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <class E>
+int head_bwd(const void* a, const void* b, const float* lin, const float* ct, int rows,
+             int c, int lo, int hi, int sm_count, void* da, void* db, void* stream) {
+  if (!valid(rows, c, lo, hi, sm_count)) return (int)cudaErrorInvalidValue;
+  const int nvec = c / 8;
+  return with_tile(nvec, [&](auto tile) {
+    using T = decltype(tile);
+    using Vec = typename E::Vec;
+    const int grid = grid_size(T::kRows, hi - lo, E::kBwdCtas, sm_count);
+    lpips_head_bwd_kernel<T, E><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const Vec*>(a), static_cast<const Vec*>(b), lin, ct, rows, lo, hi,
+        nvec, static_cast<Vec*>(da), static_cast<Vec*>(db));
+    return (int)cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 extern "C" {
 
 // The forward's workspace for `sm_count` SMs, in 4-byte words: the ticket
-// counter (0 when allocated) and a partial per CTA.
-int lpips_head_workspace_words(int sm_count) { return 1 + kFwdCtasPerSm * sm_count; }
+// counter (0 when allocated) and a partial per CTA (of either form).
+int lpips_head_workspace_words(int sm_count) {
+  return 1 + (kFwdCtasPerSm > kF32CtasPerSm ? kFwdCtasPerSm : kF32CtasPerSm) * sm_count;
+}
 
 // Forward over rows [lo, hi) of a, b ([rows, c] bf16, 16-byte aligned):
 // the fp32 scalar into *out.
 int lpips_head_fwd(const void* a, const void* b, const float* lin, int rows,
                    int c, int lo, int hi, int sm_count, void* workspace,
                    float* out, void* stream) {
-  if (!valid(rows, c, lo, hi, sm_count)) return (int)cudaErrorInvalidValue;
-  const int nvec = c / 8;
-  return with_tile(nvec, [&](auto tile) {
-    using T = decltype(tile);
-    unsigned int* ticket = static_cast<unsigned int*>(workspace);
-    const int grid = grid_size(T::kRows, hi - lo, kFwdCtasPerSm, sm_count);
-    lpips_head_fwd_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<const uint4*>(a), static_cast<const uint4*>(b), lin, lo,
-        hi, nvec, ticket, reinterpret_cast<float*>(ticket + 1), out);
-    return (int)cudaGetLastError();
-  });
+  return head_fwd<Bf16>(a, b, lin, rows, c, lo, hi, sm_count, workspace, out, stream);
+}
+
+// The same on fp32 features.
+int lpips_head_fwd_f32(const void* a, const void* b, const float* lin, int rows,
+                       int c, int lo, int hi, int sm_count, void* workspace,
+                       float* out, void* stream) {
+  return head_fwd<F32>(a, b, lin, rows, c, lo, hi, sm_count, workspace, out, stream);
 }
 
 // Backward: da (and db unless it is null), [rows, c] bf16, from rows
@@ -412,16 +490,14 @@ int lpips_head_fwd(const void* a, const void* b, const float* lin, int rows,
 int lpips_head_bwd(const void* a, const void* b, const float* lin,
                    const float* ct, int rows, int c, int lo, int hi,
                    int sm_count, void* da, void* db, void* stream) {
-  if (!valid(rows, c, lo, hi, sm_count)) return (int)cudaErrorInvalidValue;
-  const int nvec = c / 8;
-  return with_tile(nvec, [&](auto tile) {
-    using T = decltype(tile);
-    const int grid = grid_size(T::kRows, hi - lo, kBwdCtasPerSm, sm_count);
-    lpips_head_bwd_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<const uint4*>(a), static_cast<const uint4*>(b), lin, ct,
-        rows, lo, hi, nvec, static_cast<uint4*>(da), static_cast<uint4*>(db));
-    return (int)cudaGetLastError();
-  });
+  return head_bwd<Bf16>(a, b, lin, ct, rows, c, lo, hi, sm_count, da, db, stream);
+}
+
+// The same on fp32 features and gradients.
+int lpips_head_bwd_f32(const void* a, const void* b, const float* lin,
+                       const float* ct, int rows, int c, int lo, int hi,
+                       int sm_count, void* da, void* db, void* stream) {
+  return head_bwd<F32>(a, b, lin, ct, rows, c, lo, hi, sm_count, da, db, stream);
 }
 
 const char* lpips_head_error_string(int code) {

@@ -2,7 +2,9 @@
 snapshot the config into the run directory, resolve a checkpoint to
 resume ("best" too), seed, and train; or composite two trained models
 and capture their contacts (COMPOSITE), or score a composite run's
-contacts (trainer.mode=eval_contacts).
+contacts (trainer.mode=eval_contacts); or write a camera path
+(make_path) or a novel-pose pkl (make_pose), render a trained model along
+a camera path (render_path), or run a test epoch (test).
 
   python -m manus_tpu_torch.main --config-name OBJ_GAUSSIAN \\
       trainer.max_steps=2000 trainer.exp_name=run1
@@ -16,19 +18,29 @@ contacts (trainer.mode=eval_contacts).
       contact_render_type=acc_gt_eval trainer.exp_name=comp
   python -m manus_tpu_torch.main --config-name COMPOSITE \\
       trainer.mode=eval_contacts trainer.exp_name=comp gt_contact_dir=...
+  python -m manus_tpu_torch.main --config-name HAND_GAUSSIAN \\
+      trainer.mode=make_path camera_path=path.pkl render_frames=60
+  python -m manus_tpu_torch.main --config-name HAND_GAUSSIAN \\
+      trainer.mode=render_path camera_path=path.pkl \\
+      render_ckpt_dir=.../hand/checkpoints trainer.exp_name=hand
+  python -m manus_tpu_torch.main --config-name HAND_GAUSSIAN \\
+      trainer.mode=test dataset.worst_cases=true render_ckpt_dir=...
 
 The JAX package's CLI (main.py) has the same shape, and a run directory
 of either package resumes under the other. Runs go to the CUDA card
 unless --device names another device. The synthetic datasets are the
 ported data; the other modes and workloads raise NotImplementedError with
-the ROADMAP item (Queue A) that ports them.
+the ROADMAP item (Queue A) that ports them. A video the JAX CLI writes as
+an mp4 is an animated PNG here, at the same stem (utils/io.dump_video).
 """
 from __future__ import annotations
 
 import argparse
+import copy
+import json
 import os
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,9 +60,19 @@ from manus_tpu_torch.data.voxel import (
     make_voxel_grid,
     visualize_skin_weights,
 )
-from manus_tpu_torch.models.gaussians import init_gaussian_model
+from manus_tpu_torch.models.gaussians import (
+    get_covariance,
+    get_features,
+    get_opacity,
+    init_gaussian_model,
+)
 from manus_tpu_torch.ops.knn import knn_indices
-from manus_tpu_torch.ops.skinning import bone_deformation_transforms
+from manus_tpu_torch.ops.rasterizer.api import render_gaussians
+from manus_tpu_torch.ops.skinning import (
+    bone_deformation_transforms,
+    skin_gaussians,
+)
+from manus_tpu_torch.preprocess.novel_pose import generate_flexion_sequence
 from manus_tpu_torch.train import checkpoint as ckpt_mod
 from manus_tpu_torch.train.composite import (
     CompositeModels,
@@ -66,14 +88,19 @@ from manus_tpu_torch.train.workloads import (
 )
 from manus_tpu_torch.utils.camera import index_camera
 from manus_tpu_torch.utils.device import resolve_device
-from manus_tpu_torch.utils.io import dump_image
+from manus_tpu_torch.utils.io import (
+    concat_images,
+    dump_image,
+    dump_points,
+    dump_video,
+    generate_camera_path,
+    load_camera_path,
+)
+from manus_tpu_torch.utils.losses import psnr as psnr_fn
 
 # what is not ported -> the ROADMAP Queue A item that ports it
-EVALUATION, DATA = "A6 (evaluation)", "A7 (data and preprocessing)"
-NOT_PORTED_MODES = {
-    "render_path": EVALUATION, "make_path": EVALUATION,
-    "make_pose": DATA, "validate_data": DATA,
-}
+DATA = "A7 (the data half: the BRICS readers and validate_data)"
+NOT_PORTED_MODES = {"validate_data": DATA}
 
 
 def _not_ported(what: str, item: str):
@@ -156,8 +183,8 @@ class CompositeRun(NamedTuple):
     """What run_composite did: its output directory, the models it
     rendered (after the fine-tune, if any), the frames, host seconds per
     frame (render and copy to the host), the fine-tune's per-step losses
-    and seconds (empty without it), and the largest binning pair
-    overflow of any panel."""
+    and seconds (empty without it), the largest binning pair overflow of
+    any panel, and the path of its video."""
 
     out_dir: str
     models: CompositeModels
@@ -166,6 +193,7 @@ class CompositeRun(NamedTuple):
     finetune_loss: list
     finetune_s: float
     pair_overflow: int
+    video: Optional[str] = None
 
 
 def _load_model(ckpt_dir: str, device):
@@ -192,15 +220,13 @@ def run_composite(cfg, out_dir, device=None) -> CompositeRun:
     cfg.contact_render_type (gt_eval: the last 250) from camera
     f % num_views, accumulating the hand's contacts. acc_gt_eval renders
     the acc_contacts.npy an earlier gt_eval or results run of the same
-    experiment left, as the reference does (zeros without one). Writes
-    results/eval_results/ours/{f:04d}.png and acc_contacts.npy. The
-    {mode}.mp4 of the JAX CLI is not written (no video encoder here)."""
+    experiment left, as the reference does (zeros without one). With a
+    camera_path pkl (not in acc_gt_eval) frame f is seen from path camera
+    f % len(path) instead. Writes results/eval_results/ours/{f:04d}.png,
+    acc_contacts.npy and the frames as the video {mode}.apng (the JAX
+    CLI's {mode}.mp4)."""
     device = resolve_device(device)
     mode = cfg.contact_render_type
-    if cfg.camera_path and mode != "acc_gt_eval" and os.path.exists(
-            cfg.camera_path):
-        _not_ported("camera_path (a camera-path sweep of the composite)",
-                    EVALUATION)
     raster_cfg = make_raster_config(cfg)
     raster_cfg = raster_cfg._replace(
         backend=resolve_raster_backend(raster_cfg.backend, device))
@@ -272,32 +298,224 @@ def run_composite(cfg, out_dir, device=None) -> CompositeRun:
         visualize_skin_weights(skin_w.cpu().numpy()) if skin_w is not None
         else np.zeros((hand.capacity, 3), np.float32), device=device)
     bg = torch.zeros(3, device=device)
+    path_cams = None
+    if mode != "acc_gt_eval" and cfg.camera_path and os.path.exists(
+            cfg.camera_path):
+        path_cams = load_camera_path(cfg.camera_path, cfg.dataset.width,
+                                     cfg.dataset.height, device=device)
+        print(f"composite: sweeping {len(path_cams)} path cameras")
     cano_cam = index_camera(dataset.cameras, 0)
     # gt_eval takes the tail of the sequence (the reference's TestDataset,
     # brics_dynamic.py:564-567); the other modes every frame
     frame_list = list(range(dataset.num_frames))
     if mode == "gt_eval":
         frame_list = frame_list[-250:]
-    frame_s, overflow, stats = [], 0, {}
+    frame_s, overflow, stats, images = [], 0, {}, []
     for f in frame_list:
         t0 = time.perf_counter()
+        cam = (path_cams[f % len(path_cams)] if path_cams is not None
+               else index_camera(dataset.cameras, f % dataset.num_views))
         render, acc, _ = render_fn(
-            models, _bone_tf(dataset, f, hand_vg),
-            index_camera(dataset.cameras, f % dataset.num_views), cano_cam,
-            bg, acc, aux_colors, stats=stats)
+            models, _bone_tf(dataset, f, hand_vg), cam, cano_cam, bg, acc,
+            aux_colors, stats=stats)
         img = render.clamp(0, 1).cpu().numpy()
         frame_s.append(time.perf_counter() - t0)
         overflow = max(overflow, int(stats["pair_overflow"]))
-        dump_image((img * 255).astype(np.uint8),
-                   os.path.join(out_imgs, f"{f:04d}.png"))
+        images.append((img * 255).astype(np.uint8))
+        dump_image(images[-1], os.path.join(out_imgs, f"{f:04d}.png"))
     np.save(acc_path, acc.cpu().numpy())
-    print(f"composite: {mode}.mp4 not written: the video writer is not "
-          f"ported (ROADMAP Queue A item {EVALUATION})")
+    video = dump_video(images, os.path.join(out_imgs, f"{mode}.mp4"), fps=10)
     print(f"composite: wrote {len(frame_list)} frames to {out_imgs} "
-          f"(pair_overflow {overflow})")
+          f"(pair_overflow {overflow}); video {video}")
     return CompositeRun(out_dir=out_dir, models=models, frames=frame_list,
                         frame_s=frame_s, finetune_loss=ft_loss,
-                        finetune_s=ft_s, pair_overflow=overflow)
+                        finetune_s=ft_s, pair_overflow=overflow, video=video)
+
+
+class RenderRun(NamedTuple):
+    """What run_render_path or run_test did: its output directory, the
+    frames as written to the video ([H, W, 3] uint8; test: the pred | gt
+    | diff^2 strips), host seconds per frame (render and copy to the
+    host), the video's path, and for a test epoch on the train views its
+    records ({frame, view, psnr}, in frame order) and the worst_cases.json
+    path (None without worst_cases)."""
+
+    out_dir: str
+    frames: list
+    frame_s: list
+    video: str
+    records: tuple = ()
+    worst_cases: Optional[str] = None
+
+
+def _load_render_model(cfg, device):
+    model, voxel_grid = _load_model(cfg.render_ckpt_dir, device)
+    raster_cfg = make_raster_config(cfg)
+    return model, voxel_grid, raster_cfg._replace(
+        backend=resolve_raster_backend(raster_cfg.backend, device))
+
+
+def _make_render_one(cfg, model, voxel_grid, raster_cfg):
+    """render(cam, bone_tf) -> (image [H, W, 3], posed means [N, 3]) of a
+    loaded model on a zero background: skinned by bone_tf, or unposed
+    when it is None."""
+    params = model.params
+    bg = torch.zeros(3, device=params.xyz.device)
+
+    @torch.no_grad()
+    def render_one(cam, bone_tf):
+        cov = get_covariance(params, isotropic=cfg.model.isotropic_scaling)
+        if bone_tf is not None:
+            sk = skin_gaussians(params.xyz, cov,
+                                resolve_skin_weights(model, voxel_grid),
+                                bone_tf)
+            posed, cov, tf = sk.posed_xyz, sk.posed_cov, sk.tf
+        else:
+            posed, tf = params.xyz, None
+        out = render_gaussians(
+            posed, cov, params.xyz, get_features(params),
+            get_opacity(params), cam, bg, sh_degree=cfg.model.sh_degree,
+            tf=tf, active=model.active, config=raster_cfg)
+        return out.render, posed
+
+    return render_one
+
+
+def run_render_path(cfg, out_dir, device=None,
+                    video_name: str = "novel_path.mp4",
+                    canonical: bool = False) -> RenderRun:
+    """Render the best checkpoint of render_ckpt_dir along the cameras of
+    the camera_path pkl (the first render_frames of them). A hand is
+    posed by the reference skeleton's frames when its pkl is present
+    (data.synthetic.load_reference_skeleton; canonical: its rest pose
+    every frame), else rendered unposed, as the JAX CLI does: the
+    make_pose pkl is not read here. Writes results/{video_name}'s stem as
+    a video at 15 frames a second."""
+    device = resolve_device(device)
+    model, voxel_grid, raster_cfg = _load_render_model(cfg, device)
+    cams = load_camera_path(cfg.camera_path, cfg.dataset.width,
+                            cfg.dataset.height, device=device)
+    skel = (synthetic.load_reference_skeleton()
+            if cfg.workload == "hand" else None)
+    render_one = _make_render_one(cfg, model, voxel_grid, raster_cfg)
+    frames, frame_s = [], []
+    for i in range(min(cfg.render_frames, len(cams))):
+        t0 = time.perf_counter()
+        bone_tf = None
+        if skel is not None:
+            pose = (skel["rest_transforms"] if canonical else
+                    skel["pose_transforms"][i % len(skel["pose_transforms"])])
+            bone_tf = bone_deformation_transforms(
+                torch.as_tensor(pose, device=device),
+                torch.as_tensor(skel["rest_transforms"], device=device),
+                append_identity=voxel_grid is not None)
+        render, _ = render_one(cams[i], bone_tf)
+        img = render.clamp(0, 1).cpu().numpy()
+        frame_s.append(time.perf_counter() - t0)
+        frames.append((img * 255).astype(np.uint8))
+    video = dump_video(frames, os.path.join(out_dir, "results", video_name),
+                       fps=15)
+    print(f"wrote {len(frames)} path frames to {video}")
+    return RenderRun(out_dir=out_dir, frames=frames, frame_s=frame_s,
+                     video=video)
+
+
+def run_test(cfg, out_dir, device=None) -> RenderRun:
+    """The test epoch. With dataset.test_on_train_dataset or worst_cases:
+    every frame_sample_rate-th frame of the whole dynamic scene (the
+    split's share set to 0 on a copy of cfg; the JAX CLI sets it on the
+    caller's) from view f % num_views, one render each, its PSNR against
+    the gt, pred | gt | diff^2 strips as results/eval_results/test_train
+    (a video at 10 frames a second), the first frame's posed gaussians as
+    a PLY, and with worst_cases the records ranked by ascending PSNR in
+    worst_cases.json. Otherwise a camera-path sweep (run_render_path):
+    test_cano at the rest pose with test_on_canonical_pose, else
+    test_novel."""
+    device = resolve_device(device)
+    if not (cfg.dataset.test_on_train_dataset or cfg.dataset.worst_cases):
+        cano = cfg.dataset.test_on_canonical_pose
+        return run_render_path(
+            cfg, out_dir, device,
+            video_name="test_cano.mp4" if cano else "test_novel.mp4",
+            canonical=cano)
+    if cfg.workload != "hand":
+        # the JAX CLI fails here too (its static scene has no frames)
+        raise ValueError("a test epoch on the train views needs the hand's "
+                         "dynamic scene; the object's has no frames")
+    cfg = copy.deepcopy(cfg)
+    cfg.dataset.split_ratio = 0.0  # every frame (the reference's base.py)
+    dataset = build_dataset(cfg, device)
+    model, voxel_grid, raster_cfg = _load_render_model(cfg, device)
+    render_one = _make_render_one(cfg, model, voxel_grid, raster_cfg)
+    res_dir = os.path.join(out_dir, "results", "eval_results")
+    os.makedirs(res_dir, exist_ok=True)
+    frames, frame_s, records = [], [], []
+    for i, f in enumerate(range(0, dataset.num_frames,
+                                max(cfg.dataset.frame_sample_rate, 1))):
+        t0 = time.perf_counter()
+        v = f % dataset.num_views
+        raw = dataset.get_batch(f, np.asarray([v]))
+        render, posed = render_one(index_camera(dataset.cameras, v),
+                                   _bone_tf(dataset, f, voxel_grid))
+        pred = render.clamp(0, 1)
+        gt = torch.as_tensor(np.asarray(raw["rgb"][0], np.float32),
+                             device=device)
+        records.append(dict(frame=int(f), view=int(v),
+                            psnr=float(psnr_fn(pred, gt))))
+        pred, gt = pred.cpu().numpy(), gt.cpu().numpy()
+        strip = concat_images(pred, gt, (gt - pred) ** 2)
+        frame_s.append(time.perf_counter() - t0)
+        frames.append((np.clip(strip, 0, 1) * 255).astype(np.uint8))
+        if i == 0:
+            colors = None
+            sw = resolve_skin_weights(model, voxel_grid)
+            active = model.active.cpu().numpy()
+            if sw is not None:
+                colors = visualize_skin_weights(sw.cpu().numpy())[active]
+            dump_points(posed.cpu().numpy()[active],
+                        os.path.join(res_dir, "gaussians",
+                                     f"test_{f}_posed.ply"), colors)
+    video = dump_video(frames, os.path.join(res_dir, "test_train.mp4"),
+                       fps=10)
+    mean_psnr = float(np.mean([r["psnr"] for r in records]))
+    print(f"test epoch: {len(frames)} frames, mean psnr={mean_psnr:.2f}, "
+          f"video {video}")
+    worst = None
+    if cfg.dataset.worst_cases:
+        ranked = sorted(records, key=lambda r: r["psnr"])
+        worst = os.path.join(res_dir, "worst_cases.json")
+        with open(worst, "w") as fjson:
+            json.dump(ranked, fjson, indent=2)
+        print(f"worst case: frame {ranked[0]['frame']} "
+              f"(psnr={ranked[0]['psnr']:.2f}) -> worst_cases.json")
+    return RenderRun(out_dir=out_dir, frames=frames, frame_s=frame_s,
+                     video=video, records=tuple(records), worst_cases=worst)
+
+
+def run_make_path(cfg) -> str:
+    """trainer.mode=make_path: an orbit of render_frames cameras at the
+    dataset's size, written to camera_path (the pkl contract)."""
+    out = generate_camera_path(cfg.camera_path,
+                               num_frames=cfg.render_frames,
+                               width=cfg.dataset.width,
+                               height=cfg.dataset.height)
+    print(f"wrote camera path: {out}")
+    return out
+
+
+def run_make_pose(cfg, out_dir, device=None) -> str:
+    """trainer.mode=make_pose: a render_frames-frame flexion cycle of the
+    reference skeleton (the procedural one without its pkl) in the
+    meta_data pkl contract, at novel_pose_path or out_dir/novel_pose.pkl.
+    Returns the path."""
+    skel = synthetic.load_reference_skeleton() or \
+        synthetic.procedural_skeleton()
+    path = cfg.novel_pose_path or os.path.join(out_dir, "novel_pose.pkl")
+    d = generate_flexion_sequence(skel, num_frames=cfg.render_frames,
+                                  out_path=path, device=device)
+    print(f"wrote {d['pose_matrixs'].shape[0]}-frame novel pose "
+          f"({d['rest_matrixs'].shape[0]} bones): {path}")
+    return path
 
 
 def run_eval_contacts(cfg, out_dir, device=None) -> dict:
@@ -315,7 +533,8 @@ def run_eval_contacts(cfg, out_dir, device=None) -> dict:
 
 def main(argv=None):
     """Parse the CLI and run. Returns the Trainer of a training run, the
-    CompositeRun of COMPOSITE, or eval_contacts' scores."""
+    CompositeRun of COMPOSITE, eval_contacts' scores, the RenderRun of
+    render_path and test, or the path make_path or make_pose wrote."""
     parser = argparse.ArgumentParser(prog="python -m manus_tpu_torch.main")
     parser.add_argument(
         "--config-name", required=True,
@@ -357,10 +576,9 @@ def main(argv=None):
     mode = cfg.trainer.mode
     if mode in NOT_PORTED_MODES:
         _not_ported(f"trainer.mode={mode!r}", NOT_PORTED_MODES[mode])
-    composite = mode != "eval_contacts" and cfg.workload == "composite"
-    if mode == "test" and not composite:
-        _not_ported("trainer.mode='test'", EVALUATION)
-    if mode not in ("train", "eval_contacts") and not composite:
+    early = ("make_path", "make_pose", "eval_contacts", "render_path")
+    composite = mode not in early and cfg.workload == "composite"
+    if mode not in early + ("train", "test") and not composite:
         raise ValueError(f"unknown trainer.mode {cfg.trainer.mode!r}")
 
     out_dir = os.path.join(
@@ -373,10 +591,18 @@ def main(argv=None):
     torch.manual_seed(cfg.trainer.seed)
     if cfg.trainer.debug_nans:
         torch.autograd.set_detect_anomaly(True)
+    if mode == "make_path":
+        return run_make_path(cfg)
+    if mode == "make_pose":
+        return run_make_pose(cfg, out_dir, device)
     if mode == "eval_contacts":
         return run_eval_contacts(cfg, out_dir, device)
+    if mode == "render_path":
+        return run_render_path(cfg, out_dir, device)
     if composite:
         return run_composite(cfg, out_dir, device)
+    if mode == "test":
+        return run_test(cfg, out_dir, device)
     return run_train(cfg, out_dir, device)
 
 

@@ -430,12 +430,17 @@ _HEAD_SIGNATURES = {
                         _P], ctypes.c_int),
     "lpips_head_bwd": ([_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P,
                         _P, _P], ctypes.c_int),
+    "lpips_head_fwd_f32": ([_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P,
+                            _P, _P], ctypes.c_int),
+    "lpips_head_bwd_f32": ([_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                            _P, _P, _P], ctypes.c_int),
     "lpips_head_workspace_words": ([_I32], ctypes.c_int),
     "lpips_head_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 # The widest head the kernels take; C must also be a multiple of 8 (a row
-# is read as 16-byte vectors).
+# is read as 16-byte vectors of 8 bf16 channels, or two of 8 fp32 ones).
 HEAD_MAX_C = 512
+HEAD_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _check(x, name, dtype, shape, device):
@@ -529,8 +534,10 @@ def _check_head(a, b, lin, L):
     if a.dim() != 2 or a.shape[1] % 8 or not 0 < a.shape[1] <= HEAD_MAX_C:
         raise ValueError(f"head features must be [rows, C], C a multiple of "
                          f"8 up to {HEAD_MAX_C}, got {tuple(a.shape)}")
-    _check(a, "a", torch.bfloat16, tuple(a.shape), a.device)
-    _check(b, "b", torch.bfloat16, tuple(a.shape), a.device)
+    if a.dtype not in HEAD_DTYPES:
+        raise ValueError(f"head features must be bf16 or fp32, got {a.dtype}")
+    _check(a, "a", a.dtype, tuple(a.shape), a.device)
+    _check(b, "b", a.dtype, tuple(a.shape), a.device)
     _check(lin, "lin_eff", torch.float32, (a.shape[1],), a.device)
     return head_span(a.shape[0], L)
 
@@ -543,13 +550,16 @@ def _head_raise(lib, rc, what):
 
 def head_fwd_cuda(a, b, lin_eff, L: StageLayout = None):
     """Launch the head forward kernel over the rows of head_span(rows, L):
-    a, b [rows, C] bf16, lin_eff [C] fp32 -> fp32 scalar, summed on the
-    card in a fixed order (no float atomics) by the same launch."""
+    a, b [rows, C] bf16 (or both fp32: the kernel's fp32 form), lin_eff
+    [C] fp32 -> fp32 scalar, summed on the card in a fixed order (no
+    float atomics) by the same launch."""
     lo, hi = _check_head(a, b, lin_eff, L)
     lib = _head_library()
     rows, c = a.shape
     out = torch.empty((), dtype=torch.float32, device=a.device)
-    rc = lib.lpips_head_fwd(a.data_ptr(), b.data_ptr(), lin_eff.data_ptr(),
+    fwd = lib.lpips_head_fwd if a.dtype == torch.bfloat16 \
+        else lib.lpips_head_fwd_f32
+    rc = fwd(a.data_ptr(), b.data_ptr(), lin_eff.data_ptr(),
                             rows, c, lo, hi, SM_COUNT,
                             _head_workspace(lib, a.device).data_ptr(),
                             out.data_ptr(),
@@ -564,8 +574,8 @@ head_fwd_cuda.launches = 0
 
 def head_bwd_cuda(a, b, lin_eff, ct, L: StageLayout = None,
                   need_db: bool = True):
-    """Launch the head backward kernel: (da, db) [rows, C] bf16 for the
-    fp32 scalar cotangent ct (read on the card), zero outside
+    """Launch the head backward kernel: (da, db) [rows, C] in the features'
+    type for the fp32 scalar cotangent ct (read on the card), zero outside
     head_span(rows, L); db is None, and not computed, unless need_db."""
     lo, hi = _check_head(a, b, lin_eff, L)
     _check(ct, "cotangent", torch.float32, (), a.device)
@@ -573,7 +583,9 @@ def head_bwd_cuda(a, b, lin_eff, ct, L: StageLayout = None,
     rows, c = a.shape
     da = torch.empty_like(a)
     db = torch.empty_like(b) if need_db else None
-    rc = lib.lpips_head_bwd(a.data_ptr(), b.data_ptr(), lin_eff.data_ptr(),
+    bwd = lib.lpips_head_bwd if a.dtype == torch.bfloat16 \
+        else lib.lpips_head_bwd_f32
+    rc = bwd(a.data_ptr(), b.data_ptr(), lin_eff.data_ptr(),
                             ct.data_ptr(), rows, c, lo, hi, SM_COUNT,
                             da.data_ptr(), None if db is None else db.data_ptr(),
                             torch.cuda.current_stream(a.device).cuda_stream)

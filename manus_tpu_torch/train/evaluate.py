@@ -1,7 +1,8 @@
 """Contact evaluation: paint-transfer IoU/F1 of rendered accumulated
 contacts against ground-truth contact masks (the reference's
 scripts/train/eval.sh -> get_iou.py / get_iou_ours.py /
-get_evaluation_numbers_ours.py).
+get_evaluation_numbers_ours.py), and the HSV keying that makes the masks
+from photos of a painted hand.
 
 The composite's acc_gt_eval renders ([skin-weight colours | accumulated
 contact]) are thresholded into contact masks and scored per camera, per
@@ -30,6 +31,114 @@ def contact_mask_from_render(render: np.ndarray,
     """Binary contact mask of a grey-colormapped contact render [H, W, 3]:
     the channel mean above `threshold`."""
     return np.asarray(render).mean(axis=-1) > threshold
+
+
+# OpenCV's 8-bit RGB -> HSV: 12-bit fixed point through two tables of
+# rounded reciprocals, H in [0, 180).
+_HSV_SHIFT = 12
+
+
+def _hsv_tables():
+    i = np.maximum(np.arange(256, dtype=np.float64), 1.0)
+    sdiv = np.rint((255 << _HSV_SHIFT) / i).astype(np.int64)
+    hdiv = np.rint((180 << _HSV_SHIFT) / (6.0 * i)).astype(np.int64)
+    sdiv[0] = hdiv[0] = 0
+    return sdiv, hdiv
+
+
+_SDIV, _HDIV = _hsv_tables()
+
+
+def rgb_to_hsv_u8(img: np.ndarray) -> np.ndarray:
+    """[..., 3] uint8 RGB -> uint8 HSV as OpenCV's cvtColor(COLOR_RGB2HSV)
+    gives it, bit for bit: V = max, S = round(255 (V - min) / V), H in
+    [0, 180) = round(30 (hue sextant offset) / (V - min)), each a product
+    with a rounded 12-bit reciprocal."""
+    c = np.asarray(img).astype(np.int64)
+    r, g, b = c[..., 0], c[..., 1], c[..., 2]
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * _SDIV[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b,
+                 np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV[diff] + half) >> _HSV_SHIFT  # arithmetic: floor
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([h, s, v], axis=-1).astype(np.uint8)
+
+
+def _box_filter(m: np.ndarray, k: int, reduce, border: bool) -> np.ndarray:
+    """min (erosion) or max (dilation) over a k x k square (odd k), rows
+    then columns; pixels outside the image take `border`, OpenCV's
+    default morphology border (erosion: true, dilation: false)."""
+    r = k // 2
+    p = np.pad(m, r, constant_values=border)
+    rows = reduce.reduce([p[i:i + m.shape[0]] for i in range(k)])
+    return reduce.reduce([rows[:, i:i + m.shape[1]] for i in range(k)])
+
+
+def morph_close(mask: np.ndarray, k: int = 5) -> np.ndarray:
+    """cv2.morphologyEx(mask, MORPH_CLOSE, ones((k, k))) of a boolean
+    mask: dilation, then erosion."""
+    m = np.asarray(mask, bool)
+    return _box_filter(_box_filter(m, k, np.logical_or, False), k,
+                       np.logical_and, True)
+
+
+def skin_mask_from_color(image: np.ndarray, hsv_low=(0.45, 0.25, 0.2),
+                         hsv_high=(0.75, 1.0, 1.0),
+                         fill_holes: bool = True) -> np.ndarray:
+    """Paint segmentation of a photo of a painted hand ([H, W, 3] float
+    RGB in [0, 1]): the pixels whose HSV (OpenCV's 8-bit, H / 179, S and
+    V / 255) lies in [hsv_low, hsv_high], holes closed by a 5 x 5
+    closing. The range depends on the rig and paint (calibrate_hsv_range);
+    the default is a blue/cyan paint."""
+    img8 = (np.clip(image, 0, 1) * 255).astype(np.uint8)
+    hsv = rgb_to_hsv_u8(img8).astype(np.float32)
+    hsv[..., 0] /= 179.0
+    hsv[..., 1:] /= 255.0
+    mask = np.all((hsv >= np.asarray(hsv_low))
+                  & (hsv <= np.asarray(hsv_high)), axis=-1)
+    return morph_close(mask) if fill_holes else mask
+
+
+def calibrate_hsv_range(images, paint_masks, coverage: float = 0.98,
+                        margin: float = 0.02, sv_margin: float = 0.15):
+    """(hsv_low, hsv_high) for skin_mask_from_color from labelled paint
+    pixels (paint_masks [H, W] bool over images [H, W, 3] float in [0, 1]):
+    the coverage percentiles of each channel, hue centred on its circular
+    mean first (so a paint near the red wrap calibrates) and widened by
+    margin, saturation and value by the wider sv_margin (they swing with
+    the lighting). Plain float tuples."""
+    hs, ss, vs = [], [], []
+    for img, m in zip(images, paint_masks):
+        img8 = (np.clip(np.asarray(img), 0, 1) * 255).astype(np.uint8)
+        hsv = rgb_to_hsv_u8(img8).astype(np.float32)
+        sel = np.asarray(m).astype(bool)
+        if not sel.any():
+            continue
+        hs.append(hsv[..., 0][sel] / 179.0)
+        ss.append(hsv[..., 1][sel] / 255.0)
+        vs.append(hsv[..., 2][sel] / 255.0)
+    if not hs:
+        raise ValueError("no paint pixels in any provided mask")
+    h, s, v = np.concatenate(hs), np.concatenate(ss), np.concatenate(vs)
+    ang = h * 2 * np.pi
+    mean = np.arctan2(np.sin(ang).mean(), np.cos(ang).mean()) / (2 * np.pi)
+    h_cent = (h - mean + 0.5) % 1.0  # the paint's hues now near 0.5
+    qlo, qhi = (1 - coverage) * 100, coverage * 100
+    h_lo, h_hi = np.percentile(h_cent, [qlo, qhi])
+    # back to absolute hue, clamped: a range across the wrap gets the
+    # widest non-wrapping one
+    h_lo = max(0.0, float(h_lo - 0.5 + mean) - margin)
+    h_hi = min(1.0, float(h_hi - 0.5 + mean) + margin)
+    s_lo, s_hi = np.percentile(s, [qlo, qhi])
+    v_lo, v_hi = np.percentile(v, [qlo, qhi])
+    low = (h_lo, max(0.0, float(s_lo) - sv_margin),
+           max(0.0, float(v_lo) - sv_margin))
+    high = (h_hi, min(1.0, float(s_hi) + sv_margin),
+            min(1.0, float(v_hi) + sv_margin))
+    return low, high
 
 
 # The reference's 16 per-bone paint colours (get_iou_ours.py:93-110), the

@@ -1,15 +1,26 @@
-"""The LPIPS perceptual distance: the VGG16 loss on the layout conv chain,
-and the AlexNet metric.
+"""The LPIPS perceptual distance: the VGG16 loss and the AlexNet metric,
+on four conv engines.
 
 Counterpart of the JAX package's train/lpips.py. Features are taken after
 the ReLU of each of the backbone's 5 stages, unit-normalised along
 channels, squared differences weighted by the 1x1 heads `lin{k}_w`,
-averaged over pixels and summed over stages. VGG16, the training loss,
-runs its 13 3x3 convs as the layout chain of ops/conv.py (bf16 features,
-fp32 accumulation; the JAX package's lpips_conv="pallas" engine).
+averaged over pixels and summed over stages. The engines (the JAX
+config's loss.lpips_conv names):
+
+  "pallas"       VGG16's 13 3x3 convs as the layout chain of ops/conv.py
+                 (bf16 features, fp32 accumulation) and the head kernel;
+  "xla"          fp32 torch convs with autograd and an fp32 head in torch
+                 ops, either backbone (the JAX package's XLA path);
+  "xla_dx"       VGG16 on fp32 torch convs whose backward gives the input
+                 gradient alone (frozen weights), the head on the head
+                 kernel's fp32 rows;
+  "xla_dx_bf16"  the same with bf16 activations and fp32 accumulation,
+                 the head on the kernel's bf16 rows.
+
+"auto" is the layout chain for VGG16 and "xla" for AlexNet, on the card
+and on the CPU alike (the JAX package's "auto" is "xla" off a TPU).
 AlexNet, the validation metric (the reference evaluates with AlexNet and
-trains with VGG, loss_utils.py:17-19), runs fp32 torch convs and an fp32
-head, as the JAX package runs it on XLA convs.
+trains with VGG, loss_utils.py:17-19), runs on "xla" only.
 
 Params are a dict with the JAX package's keys and layouts:
 conv{stage}_{layer}_w [3, 3, Ci, Co] (HWIO), conv{stage}_{layer}_b [Co],
@@ -76,8 +87,7 @@ PLANS = {"vgg": VGG_PLAN, "alex": ALEX_PLAN}
 SHIFT = np.array([-0.030, -0.088, -0.188], np.float32)
 SCALE = np.array([0.458, 0.448, 0.450], np.float32)
 
-# The conv engine: the layout chain, which the JAX config calls "pallas".
-ENGINE = "pallas"
+ENGINES = ("pallas", "xla", "xla_dx", "xla_dx_bf16")
 
 
 def infer_arch(params) -> str:
@@ -87,16 +97,20 @@ def infer_arch(params) -> str:
 
 
 def resolve_lpips_engine(lpips_conv: str, params) -> str:
-    """The conv engine for the loss and the gt-feature cache. The port has
-    one, the layout chain ("auto" and "pallas" name it); the JAX package's
-    fp32 and XLA engines, and AlexNet, belong to the evaluation slice."""
-    if lpips_conv not in ("auto", ENGINE):
-        raise NotImplementedError(
-            f"lpips_conv={lpips_conv!r} is not ported; the port runs the "
-            f"layout conv chain ('auto' or '{ENGINE}')")
-    if infer_arch(params) != "vgg":
-        raise NotImplementedError("only the VGG16 LPIPS is ported")
-    return ENGINE
+    """The conv engine for the loss and the gt-feature cache, which must
+    be built with the loss's engine: "auto" is "pallas" (the layout
+    chain) for VGG16 and "xla" for AlexNet; every engine but "xla" is
+    VGG16's alone."""
+    if lpips_conv not in ("auto",) + ENGINES:
+        raise ValueError(f"unknown lpips_conv {lpips_conv!r}; one of "
+                         f"{('auto',) + ENGINES}")
+    arch = infer_arch(params)
+    if lpips_conv == "auto":
+        return "pallas" if arch == "vgg" else "xla"
+    if lpips_conv != "xla" and arch != "vgg":
+        raise ValueError(f"the {lpips_conv!r} LPIPS engine runs VGG16 "
+                         f"only; AlexNet runs on 'xla'")
+    return lpips_conv
 
 
 def random_lpips_params(seed: int = 0, arch: str = "vgg",
@@ -193,7 +207,7 @@ def pack_lpips_params(params) -> PackedLpips:
     if isinstance(params, PackedLpips):
         return params
     if infer_arch(params) != "vgg":
-        raise NotImplementedError("only the VGG16 LPIPS is ported")
+        raise ValueError("the layout chain runs VGG16 only")
     convs, lins = [], []
     for si, stage in enumerate(VGG_PLAN["stages"]):
         for li in range(len(stage)):
@@ -304,19 +318,100 @@ def _lpips_head(params: dict, f1: list, f2: list):
     return total
 
 
-def lpips_distance(params, img1, img2):
-    """LPIPS distance of two [H, W, 3] images in [0, 1], an fp32 scalar
-    differentiable in both, with the backbone the params encode: VGG16 on
-    the layout chain (the JAX package's lpips_distance_pallas), AlexNet on
-    fp32 torch convs (its lpips_distance)."""
-    if infer_arch(params) == "alex":
-        f1 = backbone_features(params, img1[None] * 2.0 - 1.0, "alex")
-        f2 = backbone_features(params, img2[None] * 2.0 - 1.0, "alex")
+class Conv3x3DxFn(torch.autograd.Function):
+    """A stride-1 SAME 3x3 conv, bias and ReLU of [1, Ci, H, W]
+    activations in `dtype` with fp32 accumulation (the JAX package's
+    _conv3x3_xla; in bf16 the conv's output is rounded once before the
+    fp32 bias and once after the ReLU, where JAX rounds once), whose
+    backward is the input gradient alone: the cotangent masked by y > 0,
+    convolved with the flipped, transposed weights (frozen weights: no dw,
+    no db)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, dtype):
+        with _fp32_conv():
+            y = F.conv2d(x.to(dtype), w.to(dtype), padding=1)
+        y = torch.relu(y.float() + b[:, None, None]).to(dtype)
+        ctx.save_for_backward(y, w)
+        ctx.dtype, ctx.x_dtype = dtype, x.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w = ctx.saved_tensors
+        g = torch.where(y > 0, g, 0.0)
+        w_t = w.flip(2, 3).transpose(0, 1)
+        with _fp32_conv():
+            dx = F.conv2d(g.to(ctx.dtype), w_t.to(ctx.dtype), padding=1)
+        return dx.to(ctx.x_dtype), None, None, None
+
+
+def vgg16_features_xla_dx(params: dict, x, dtype=torch.float32) -> list:
+    """The 5 VGG16 stage features ([h, w, C] in dtype) of x ([H, W, 3] in
+    [-1, 1]) on Conv3x3DxFn convs and VALID 2x2 max pools."""
+    shift = torch.as_tensor(SHIFT, device=x.device)
+    scale = torch.as_tensor(SCALE, device=x.device)
+    x = ((x - shift) / scale).to(dtype).permute(2, 0, 1)[None]
+    feats = []
+    for si, stage in enumerate(VGG_PLAN["stages"]):
+        if si in VGG_PLAN["pool_before"]:
+            x = F.max_pool2d(x, 2, 2)
+        for li in range(len(stage)):
+            x = Conv3x3DxFn.apply(
+                x, params[f"conv{si}_{li}_w"].permute(3, 2, 0, 1),
+                params[f"conv{si}_{li}_b"].float(), dtype)
+        feats.append(x[0].permute(1, 2, 0))
+    return feats
+
+
+def _lpips_head_rows(params: dict, f1: list, f2: list):
+    """The head over [h, w, C] stage features as [h w, C] rows on the head
+    kernel (fp32 or bf16 rows; the JAX package's _lpips_head_rows, which
+    runs its Pallas head), 1/(h w) folded into lin."""
+    total = None
+    for k, (a, b) in enumerate(zip(f1, f2)):
+        c = a.shape[-1]
+        npix = float(np.prod(a.shape[:-1]))
+        lin_eff = params[f"lin{k}_w"].float() * (1.0 / npix)
+        d = head_stage_layout(a.reshape(-1, c).contiguous(),
+                              b.reshape(-1, c).contiguous(), lin_eff)
+        total = d if total is None else total + d
+    return total
+
+
+def _xla_features(params, x, engine: str) -> list:
+    """Stage features [h, w, C] of x ([H, W, 3] in [-1, 1]) on a torch-conv
+    engine."""
+    if engine == "xla":
+        return [f[0] for f in backbone_features(params, x[None].float(),
+                                                infer_arch(params))]
+    dt = torch.bfloat16 if engine == "xla_dx_bf16" else torch.float32
+    return vgg16_features_xla_dx(params, x, dt)
+
+
+def _head(params, engine: str, f1: list, f2: list):
+    if engine == "xla":
         return _lpips_head(params, f1, f2)
-    params = pack_lpips_params(params)
-    f1 = vgg16_features(params, img1 * 2.0 - 1.0)
-    f2 = vgg16_features(params, img2 * 2.0 - 1.0)
-    return _lpips_head_layout(params, f1, f2)
+    return _lpips_head_rows(params, f1, f2)
+
+
+def lpips_distance(params, img1, img2, engine: str = "auto"):
+    """LPIPS distance of two [H, W, 3] images in [0, 1], an fp32 scalar
+    differentiable in both, on `engine` (resolve_lpips_engine's names;
+    "auto": VGG16 on the layout chain, the JAX package's
+    lpips_distance_pallas, AlexNet on fp32 torch convs, its
+    lpips_distance)."""
+    engine = resolve_lpips_engine(engine, params)
+    if engine != "pallas" and isinstance(params, PackedLpips):
+        params = params.source
+    if engine == "pallas":
+        params = pack_lpips_params(params)
+        f1 = vgg16_features(params, img1 * 2.0 - 1.0)
+        f2 = vgg16_features(params, img2 * 2.0 - 1.0)
+        return _lpips_head_layout(params, f1, f2)
+    f1 = _xla_features(params, img1 * 2.0 - 1.0, engine)
+    f2 = _xla_features(params, img2 * 2.0 - 1.0, engine)
+    return _head(params, engine, f1, f2)
 
 
 def pool_avg(img, k: int):
@@ -329,17 +424,30 @@ def pool_avg(img, k: int):
         dim=(1, 3))
 
 
-def lpips_features(params, img) -> list:
-    """The stage features of img ([H, W, 3] in [0, 1]) as layout arrays,
-    for the gt-feature cache; their layouts follow from the image shape."""
-    return [f for f, _ in vgg16_features(params, img * 2.0 - 1.0)]
+def lpips_features(params, img, engine: str = "auto") -> list:
+    """The stage features of img ([H, W, 3] in [0, 1]) on `engine`, for
+    the gt-feature cache: layout arrays on "pallas" (their layouts follow
+    from the image shape), [h, w, C] maps on the others."""
+    engine = resolve_lpips_engine(engine, params)
+    if engine != "pallas" and isinstance(params, PackedLpips):
+        params = params.source
+    if engine == "pallas":
+        return [f for f, _ in vgg16_features(params, img * 2.0 - 1.0)]
+    return _xla_features(params, img * 2.0 - 1.0, engine)
 
 
-def lpips_distance_cached(params, img1, gt_feats: list):
+def lpips_distance_cached(params, img1, gt_feats: list, engine: str = "auto"):
     """LPIPS distance between img1 and a gt whose features lpips_features
-    computed: the gt forward is skipped. Exact: no gradient flows to the
-    gt branch either way."""
-    params = pack_lpips_params(params)
-    f1 = vgg16_features(params, img1 * 2.0 - 1.0)
-    f2 = [(g.detach(), L) for g, (_, L) in zip(gt_feats, f1)]
-    return _lpips_head_layout(params, f1, f2)
+    computed on the same engine: the gt forward is skipped. Exact: no
+    gradient flows to the gt branch either way."""
+    engine = resolve_lpips_engine(engine, params)
+    if engine != "pallas" and isinstance(params, PackedLpips):
+        params = params.source
+    gt_feats = [g.detach() for g in gt_feats]
+    if engine == "pallas":
+        params = pack_lpips_params(params)
+        f1 = vgg16_features(params, img1 * 2.0 - 1.0)
+        f2 = [(g, L) for g, (_, L) in zip(gt_feats, f1)]
+        return _lpips_head_layout(params, f1, f2)
+    f1 = _xla_features(params, img1 * 2.0 - 1.0, engine)
+    return _head(params, engine, f1, gt_feats)

@@ -246,9 +246,10 @@ class Trainer:
 
     def _build_lpips_feat_cache(self):
         """The gt LPIPS stage features of every device-cached image,
-        computed once (lpips.lpips_features, at the loss's downsample): the
-        step then skips the gt's VGG forward. A tuple of per-stage
-        [F, V, rows, C] tensors, or None when off: no lpips_loss, over
+        computed once (lpips.lpips_features, at the loss's downsample, on
+        the loss's engine): the step then skips the gt's VGG forward. A
+        tuple of per-stage [F, V, ...] tensors, or None when off: no
+        lpips_loss, over
         loss.lpips_gt_cache_mb, no image cache, or a random background."""
         cfg = self.cfg
         if (self.lpips_params is None
@@ -265,7 +266,8 @@ class Trainer:
 
         def feats(img):
             return lpips_mod.lpips_features(self.lpips_params,
-                                            lpips_mod.pool_avg(img, k))
+                                            lpips_mod.pool_avg(img, k),
+                                            engine)
 
         with torch.no_grad():
             first = feats(rgb_all[0, 0])

@@ -113,8 +113,9 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
     optionally lpips_gt_feats, the gt's LPIPS stage features (a tuple of
     per-stage tensors with a leading V, lpips.lpips_features of each
     view), which skip the gt's VGG forward.
-    lpips_params (a VGG16-LPIPS params dict, packed here once) feeds the
-    lpips_loss term from step opts.start_lpips_iter on. Returns
+    lpips_params (an LPIPS params dict; packed here once for the layout
+    chain) feeds the lpips_loss term from step opts.start_lpips_iter on,
+    on the engine of cfg.loss.lpips_conv (lpips.resolve_lpips_engine). Returns
     step(state, batch) -> (state, metrics), metrics a dict of 0-d tensors.
     With voxel_grid (data/voxel.py make_voxel_grid) the skin weights are
     sampled from it every step; the hand takes one exactly when
@@ -138,9 +139,12 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
     loss_names = tuple(cfg.loss.losses)
     loss_weights = tuple(cfg.loss.loss_weight)
     width, height = cfg.dataset.width, cfg.dataset.height
+    lpips_engine = "pallas"
     if lpips_params is not None and "lpips_loss" in loss_names:
-        lpips_mod.resolve_lpips_engine(cfg.loss.lpips_conv, lpips_params)
-        lpips_params = lpips_mod.pack_lpips_params(lpips_params)
+        lpips_engine = lpips_mod.resolve_lpips_engine(cfg.loss.lpips_conv,
+                                                      lpips_params)
+        if lpips_engine == "pallas":
+            lpips_params = lpips_mod.pack_lpips_params(lpips_params)
 
     def loss_fn(params, m2d_off, active, skin_w, batch, lpips_on: bool):
         posed_xyz, posed_cov, tf = forward_gaussians(
@@ -162,6 +166,7 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
                 loss_weights, opts.condition_number,
                 lpips_params=lpips_params, lpips_enabled=lpips_on,
                 lpips_downsample=cfg.loss.lpips_downsample,
+                lpips_engine=lpips_engine,
                 lpips_gt_feats=None if gt_feats is None
                 else [f[i] for f in gt_feats])
             totals.append(total)

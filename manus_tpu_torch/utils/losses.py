@@ -83,19 +83,21 @@ def isotropic_regularizer(scaling, condition_number: float, active=None):
 def compute_losses(pred_image, gt_image, scaling, active, loss_names: tuple,
                    loss_weights: tuple, condition_number: float = 0.4,
                    lpips_params=None, lpips_enabled: bool = True,
-                   lpips_downsample: int = 1, lpips_gt_feats=None):
+                   lpips_downsample: int = 1, lpips_gt_feats=None,
+                   lpips_engine: str = "auto"):
     """Weighted multi-loss (reference base.py:323-365). Returns (total,
     {name: loss}).
 
     lpips_loss: 0 when lpips_params is None (no weights resolved). Else
-    lpips_params, a VGG16-LPIPS params dict or its packed form, runs on
-    the layout conv chain, the port's one engine (make_train_step checks
-    loss.lpips_conv once), and lpips_enabled, a host bool, is the
+    lpips_params, an LPIPS params dict (or a VGG16 one packed for the
+    layout chain), runs on lpips_engine (lpips.resolve_lpips_engine's
+    names; make_train_step resolves loss.lpips_conv once), and
+    lpips_enabled, a host bool, is the
     reference's start_lpips_iter gate (base.py:333-341): when it is false
     the term is an fp32 0 and no conv runs. lpips_downsample k > 1 average-pools pred and gt k x k first.
     lpips_gt_feats, the gt's stage features from lpips.lpips_features
-    (built at the same lpips_downsample), skip the gt forward; exact, as
-    the gt branch carries no gradient.
+    (built at the same lpips_downsample on the same engine), skip the gt
+    forward; exact, as the gt branch carries no gradient.
     """
     losses = {}
     for name in loss_names:
@@ -110,7 +112,7 @@ def compute_losses(pred_image, gt_image, scaling, active, loss_names: tuple,
         elif name == "lpips_loss":
             losses[name] = _lpips_term(
                 pred_image, gt_image, lpips_params, lpips_enabled,
-                lpips_downsample, lpips_gt_feats)
+                lpips_downsample, lpips_gt_feats, lpips_engine)
         else:
             raise ValueError(f"unknown loss {name}")
     total = torch.zeros((), dtype=pred_image.dtype, device=pred_image.device)
@@ -120,7 +122,7 @@ def compute_losses(pred_image, gt_image, scaling, active, loss_names: tuple,
 
 
 def _lpips_term(pred_image, gt_image, params, enabled: bool, downsample: int,
-                gt_feats):
+                gt_feats, engine: str):
     dev = pred_image.device
     if params is None:
         return torch.zeros((), dtype=pred_image.dtype, device=dev)
@@ -128,6 +130,7 @@ def _lpips_term(pred_image, gt_image, params, enabled: bool, downsample: int,
         return torch.zeros((), dtype=torch.float32, device=dev)
     pred = lpips.pool_avg(pred_image, downsample)
     if gt_feats is not None:
-        return lpips.lpips_distance_cached(params, pred, list(gt_feats))
+        return lpips.lpips_distance_cached(params, pred, list(gt_feats),
+                                           engine)
     return lpips.lpips_distance(params, pred,
-                                lpips.pool_avg(gt_image, downsample))
+                                lpips.pool_avg(gt_image, downsample), engine)

@@ -692,3 +692,72 @@ def test_cuda_composite_results_panels_match_plain(dev):
     err = (rk - rp).abs().amax(-1)
     assert err.max() <= 0.0101 and (err > 1e-4).float().mean() <= 1e-3
     assert rk[:, :128].amax() > 0  # the rgb panel shows the scene
+
+
+@pytest.mark.parametrize("rows,c", [(528, 512), (100, 24), (70001, 64),
+                                    (4096, 256)])
+def test_cuda_head_fp32_matches_plain(dev, rows, c):
+    """The head kernels' fp32 form (the xla_dx LPIPS engine's rows): the
+    forward within 1e-5 relative, the gradients within 1e-5 of their
+    largest entry (fp32 in and out), equal bits over two launches, zero
+    rows guarded, da alone equal to the two-output form's; mixed types
+    raise."""
+    from manus_tpu_torch.ops import conv
+
+    g = torch.Generator(device="cpu").manual_seed(rows * c)
+    a = torch.randn(rows, c, generator=g)
+    b = torch.randn(rows, c, generator=g)
+    a[::7] = 0
+    b[::7] = 0
+    a, b = a.to(dev), b.to(dev)
+    lin = (torch.rand(c, generator=g) / c / rows).to(dev)
+    got = conv.head_fwd_cuda(a, b, lin).item()
+    want = conv.head_fwd_torch(a, b, lin).item()
+    assert abs(got - want) <= 1e-5 * abs(want)
+    assert conv.head_fwd_cuda(a, b, lin).item() == got
+    ct = torch.tensor(0.7, device=dev)
+    da, db = conv.head_bwd_cuda(a, b, lin, ct)
+    da_ref, db_ref = conv.head_bwd_torch(a, b, lin * ct)
+    assert da.dtype == db.dtype == torch.float32
+    for x, ref in ((da, da_ref), (db, db_ref)):
+        assert (x - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert not da[::7].any() and not db[::7].any()
+    da_only, _ = conv.head_bwd_cuda(a, b, lin, ct, need_db=False)
+    assert torch.equal(da_only, da)
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv.head_fwd_cuda(a, b.to(torch.bfloat16), lin)
+
+
+def test_cuda_ik_loop_matches_cpu_without_sync(dev, monkeypatch):
+    """solve_ik on the 20-bone hand on the card: its AdaBelief iterations
+    run under set_sync_debug_mode("error") (no host sync), and 30 of
+    them agree with the CPU's to 1e-5 (the solve is chaotic after ~50)."""
+    from chip_smoke import hand20_skeleton
+    from manus_tpu_torch.preprocess import ik
+
+    loop = ik.adabelief_loop
+
+    def guarded(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(ik, "adabelief_loop", guarded)
+    h = hand20_skeleton()
+    chain = ik.make_chain(h["bnames"], h["parents"], h["rest_transforms"],
+                          h["rest_heads"], h["rest_tails"])
+    rng = np.random.RandomState(0)
+    ang = np.where(chain.dof, rng.uniform(-0.3, 0.3, (21, 3)), 0)
+    target = ik.chain_forward(chain, torch.tensor([0.01, 0.02, 0.0]),
+                              torch.tensor(ang, dtype=torch.float32))[0]
+    use = torch.ones(21, dtype=torch.bool)
+    out = {}
+    for d in ("cpu", dev):
+        out[str(d)] = ik.solve_ik(chain, target.to(d), use.to(d), max_iter=30,
+                                  tensors=ik.chain_tensors(chain, d))
+    (tc, ac, lc), (tg, ag, lg) = out["cpu"], out[str(dev)]
+    assert abs(lg - lc) <= 1e-4 * lc
+    torch.testing.assert_close(ag.cpu(), ac, rtol=0, atol=1e-5)
+    torch.testing.assert_close(tg.cpu(), tc, rtol=0, atol=1e-5)

@@ -438,18 +438,27 @@ def test_load_lpips_params_reads_the_converter_npz(tmp_path):
 
 
 def test_resolve_lpips_engine():
+    """The five names of loss.lpips_conv: "auto" is the layout chain for
+    VGG16 and "xla" for AlexNet; AlexNet runs on "xla" alone; an unknown
+    name raises."""
     params = tlpips.random_lpips_params(0, device="cpu")
+    alex = tlpips.random_lpips_params(0, "alex", device="cpu")
     assert tlpips.resolve_lpips_engine("auto", params) == "pallas"
-    assert tlpips.resolve_lpips_engine("pallas", params) == "pallas"
-    for name in ("xla", "xla_dx", "xla_dx_bf16"):
-        with pytest.raises(NotImplementedError):
-            tlpips.resolve_lpips_engine(name, params)
+    assert tlpips.resolve_lpips_engine("auto", alex) == "xla"
+    for name in ("pallas", "xla", "xla_dx", "xla_dx_bf16"):
+        assert tlpips.resolve_lpips_engine(name, params) == name
+    assert tlpips.resolve_lpips_engine("xla", alex) == "xla"
+    for name in ("pallas", "xla_dx", "xla_dx_bf16"):
+        with pytest.raises(ValueError, match="VGG16 only"):
+            tlpips.resolve_lpips_engine(name, alex)
+    with pytest.raises(ValueError, match="unknown lpips_conv"):
+        tlpips.resolve_lpips_engine("cudnn", params)
 
 
 def test_make_train_step_checks_the_lpips_engine_once():
-    """The step builder rejects an engine the port lacks when it is built,
-    and builds with the layout chain; without lpips_loss in the loss
-    list, lpips_conv is not read."""
+    """The step builder resolves loss.lpips_conv when it is built: every
+    engine name builds, an unknown one raises; without lpips_loss in the
+    loss list, lpips_conv is not read."""
     import dataclasses
 
     from manus_tpu_torch import config as tconfig
@@ -458,12 +467,12 @@ def test_make_train_step_checks_the_lpips_engine_once():
     params = tlpips.random_lpips_params(0, device="cpu")
     cfg = tconfig.hand_config()
     cfg.skin_init = "mano_init_points"
-    for conv in ("auto", "pallas"):
+    for conv in ("auto", "pallas", "xla", "xla_dx", "xla_dx_bf16"):
         cfg.loss = dataclasses.replace(cfg.loss, lpips_conv=conv)
         assert callable(twork.make_train_step(cfg, 1.0, True,
                                               lpips_params=params))
-    cfg.loss = dataclasses.replace(cfg.loss, lpips_conv="xla_dx")
-    with pytest.raises(NotImplementedError, match="xla_dx"):
+    cfg.loss = dataclasses.replace(cfg.loss, lpips_conv="cudnn")
+    with pytest.raises(ValueError, match="cudnn"):
         twork.make_train_step(cfg, 1.0, True, lpips_params=params)
     cfg.loss = dataclasses.replace(cfg.loss, losses=("rgb_loss",),
                                    loss_weight=(1.0,))

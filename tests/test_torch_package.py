@@ -41,6 +41,8 @@ def test_importing_the_port_loads_no_jax():
         "import manus_tpu_torch.train.checkpoint\n"
         "import manus_tpu_torch.data.prefetch\n"
         "import manus_tpu_torch.utils.io\n"
+        "import manus_tpu_torch.utils.vis\n"
+        "import manus_tpu_torch.preprocess.pipeline\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'manus_tpu')]\n"
         "assert not bad, bad\n"
     )
