@@ -1,6 +1,7 @@
 """Run the PyTorch port on one NVIDIA card: the HAND_GAUSSIAN training step
 and its kernels, the training CLI, the render, test and pose entry points
-with the preprocessing pipeline, and the contact stage (COMPOSITE).
+with the preprocessing pipeline, the contact stage (COMPOSITE), and
+training on BRICS captures read from disk.
 
     python3 chip_smoke.py
 
@@ -8,7 +9,8 @@ Phases, each of which exits non-zero on failure:
 
   1. build: nvcc compiles manus_tpu_torch/csrc/*.cu (composite, conv3x3,
      lpips_head) for sm_90a into manus_tpu_torch/_build/ (one nvcc per
-     source, in parallel); ptxas's report of every library, read from the
+     source, in parallel, beside g++ for the host assembly of
+     csrc/image_ops.cpp); ptxas's report of every library, read from the
      log kept beside it (also for one built earlier), must show no spill;
   2. scene: bench.py's primary hand workload built with the port:
      65,536 gaussians at 512x512, one view, procedural_skeleton(8), point
@@ -137,8 +139,32 @@ Phases, each of which exits non-zero on failure:
      peak MiB a run. Phase 9's and 10's checkpoints, the frames but the
      first of each run and the baseline's meshes are deleted afterwards.
 
-The last lines are a {"kernels": [...]} JSON line, the card's name and
-power limit from nvidia-smi, and {"ok": true, "device": {...}}.
+ 12. brics: BRICS captures at 1280x720 through the port's own readers
+     (no h5py, no OpenCV), into chiprun_out/brics/: a dynamic capture of
+     the 20-bone hand (hand20_skeleton) rendered by BRICS_VIEWS cameras
+     over BRICS_FRAMES frames, each view cropped to its alpha's bbox and
+     written as two action files by hdf5.write_tree, and a static one of
+     the synthetic object by BRICS_STATIC_VIEWS cameras with BRICS names
+     (RGBA PNGs, a zero-distortion calibration, its points as the NGP
+     mesh). trainer.mode=validate_data through the CLI exits 0 on both and
+     non-zero on a copy with one bbox broken; the loaders' load seconds
+     and a 1280x720 view's get_batch ms (HDF5 read, C++ assembly), the C++
+     assembly against numpy; HAND_GAUSSIAN on the dynamic capture through
+     the CLI (BRICS_CAPACITY slots, BRICS_STEPS steps, LPIPS with random
+     features from BRICS_LPIPS_FROM, the device image cache off so that
+     every batch is read and assembled in the prefetch thread): the loss
+     falls, the backend is cuda, each kernel's launches are what the run
+     implies (the gt's VGG16 forward every LPIPS step), and on one batch
+     both composite kernels against their plain version and
+     lpips_distance with its image gradient against the plain chain on
+     the CPU; OBJ_GAUSSIAN on the static capture (BRICS_OBJ_STEPS steps
+     over the device image cache): the loss falls and validation runs on
+     the 2 held-out cameras. The captures, checkpoints and PLYs are
+     deleted afterwards.
+
+The last lines are a {"kernels": [...]} JSON line (the launches of phase
+12's hand run), the card's name and power limit from nvidia-smi, and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -162,7 +188,11 @@ from manus_tpu_torch.config import (
     hand_config,
     load_config_snapshot,
 )
+from manus_tpu_torch.data import hdf5
+from manus_tpu_torch.data import prefetch as prefetch_mod
+from manus_tpu_torch.data.brics import BricsDynamicDataset, BricsStaticDataset
 from manus_tpu_torch.data.synthetic import (
+    gt_object_gaussians,
     hemisphere_cameras,
     load_skeleton,
     perturb_model,
@@ -190,7 +220,10 @@ from manus_tpu_torch.ops.rasterizer.api import (
 from manus_tpu_torch.ops.rasterizer.binning import bin_gaussians
 from manus_tpu_torch.ops.rasterizer.payload import NUM_LIVE, build_payload
 from manus_tpu_torch.ops.rasterizer.projection import TILE, project_gaussians
-from manus_tpu_torch.ops.skinning import bone_deformation_transforms
+from manus_tpu_torch.ops.skinning import (
+    bone_deformation_transforms,
+    skin_gaussians,
+)
 from manus_tpu_torch import main as cli
 from manus_tpu_torch.preprocess import ik as ik_mod
 from manus_tpu_torch.preprocess import pipeline as pipeline_mod
@@ -220,9 +253,14 @@ from manus_tpu_torch.utils.camera import index_camera, stack_cameras
 from manus_tpu_torch.utils.colormap import apply_colormap
 from manus_tpu_torch.utils.io import (
     dump_image,
+    dump_points,
     load_camera_path,
     read_png,
     read_video,
+)
+from manus_tpu_torch.utils.transforms import (
+    covariance_from_scaling_rotation,
+    matrix_to_quaternion,
 )
 
 CAPACITY, WIDTH, HEIGHT, VIEWS = 65536, 512, 512, 1
@@ -233,8 +271,18 @@ STEPS, WARMUP = 20, 3
 # log T lands within rounding of log(1e-4): at most 0.1% of the pixels,
 # each off by at most the T (<= 0.0101) of the pair in question. Backward:
 # d_payload per field, max abs error over the field's max abs value 1e-3
-# (each column is a sum over up to 256 pixels, with cancellation).
+# (each column is a sum over up to 256 pixels, with cancellation), from
+# the pixels at which both versions walked the same pairs. A pixel where
+# one version includes a pair that the other drops (a walk's end, or the
+# 1/255 gate, decided within rounding) computes another function there:
+# its gradient changes for every pair before the flip, by up to the T of
+# the flipped pair over 1 - alpha (0.99 alpha: 100 times). Such a pixel's
+# log T_final differs by |log(1 - alpha)| >= -log(1 - 1/255) = 3.9e-3,
+# against rounding of some 5e-5 for a sum of at most 4,096 logs in
+# another order, so WALK_LOG_TOL finds it; it gets no cotangent in the
+# backward comparison, and at most FLIP_SHARE of the pixels may be such.
 FWD_ATOL, FLIP_SHARE, FLIP_ATOL, BWD_NORM_TOL = 1e-4, 1e-3, 0.0101, 1e-3
+WALK_LOG_TOL = 1e-3
 # Pairs a pass of the plain backward takes at most: 2^18 pairs of 256
 # pixels at some twenty saved floats a pixel-pair is about 5 GiB.
 PLAIN_PAIRS = 1 << 18
@@ -385,6 +433,26 @@ HEAD_F32_RTOL = 1e-5
 # another order.
 ENGINE_REL, ENGINE_COS = 2.0 ** -6, 0.98
 FP32_REL, FP32_COS, FP32_NORM = 1e-4, 0.9999, 1e-3
+# The brics phase (12): BRICS captures at the README's 1280x720, made
+# here and read back through the port's own readers. Dynamic: the 20-bone
+# hand (hand20_skeleton; the CLI's loader reads 20 bones) flexing over
+# BRICS_FRAMES frames, rendered by BRICS_VIEWS cameras (a BRICS rig has
+# 50+) 0.6 m away with a 40 degree field of view, each view cropped to
+# its alpha's bbox plus BRICS_MARGIN px, written as two action files by
+# hdf5.write_tree. Static: the synthetic object at a quarter of its size
+# seen by BRICS_STATIC_VIEWS cameras named as BRICS names them, so that
+# the 12-camera skip list bites, as RGBA PNGs with a zero-distortion
+# calibration and the object's points as its NGP mesh. HAND_GAUSSIAN
+# trains on the dynamic capture with the device image cache off, so every
+# step's batch is read from HDF5 and assembled in C++ in the prefetch
+# thread; BRICS_SAMPLE_SIZE a bone draws 1.5 x 4,369 = 6,553 init points a
+# bone, 131,060 for the 20 bones, the most that fit BRICS_CAPACITY.
+BRICS_DIR = os.path.join("chiprun_out", "brics")
+BRICS_W, BRICS_H, BRICS_VIEWS, BRICS_FRAMES = 1280, 720, 50, 8
+BRICS_STATIC_VIEWS, BRICS_MARGIN, BRICS_GT_PER_BONE = 53, 16, 400
+BRICS_CAPACITY, BRICS_SAMPLE_SIZE = 131072, 4369
+BRICS_STEPS, BRICS_LPIPS_FROM, BRICS_OBJ_STEPS = 150, 50, 100
+BRICS_TIMED_BATCHES = 20
 # query rows of each direction held to float64; the baseline mesh (an
 # icosphere of 162 vertices, 10,242 after the baseline's 3 subdivisions;
 # MANO's 778 give 49,000) and its posed frames (the CPU's contacts, its
@@ -724,8 +792,21 @@ def composite_check(pay, bins, dev, tag, width=WIDTH, height=HEIGHT):
     check(all(torch.equal(a, b) for a, b in zip(fwd[:4], again[:4])),
           f"two launches of the forward differ ({tag})")
 
+    # the pixels whose walks took other pairs: see WALK_LOG_TOL
+    differ = (torch.log(tf_k) - torch.log(tf_p)).abs() > WALK_LOG_TOL
+    n_differ = int(differ.sum())
+    print(f"composite {tag}: {n_differ} pixels whose walks differ by a pair "
+          f"(log T_final apart by more than {WALK_LOG_TOL}) get no cotangent "
+          f"in the backward comparison")
+    check(n_differ <= FLIP_SHARE * n_tiles * 256,
+          f"{n_differ} pixels walk other pairs in the kernel ({tag})")
+    same = composite.tiles_to_image(
+        torch.zeros(n_tiles, 3, 256, device=dev), (~differ).float(),
+        torch.zeros(3, device=dev), ntx, nty, width, height)[1]
+
     gen = torch.Generator(device=dev).manual_seed(0)
-    r_img = torch.rand(height, width, 3, device=dev, generator=gen) - 0.5
+    r_img = (torch.rand(height, width, 3, device=dev, generator=gen) - 0.5) \
+        * same[..., None]
     bg = torch.tensor([0.3, 0.2, 0.1], device=dev)
 
     def d_payload(fn, counts):
@@ -1186,7 +1267,7 @@ def head_checks(sweeps, da_only, a, b, lin_eff, si, L, gen):
           f"graph replays gave equal bits, da-only da equal")
 
 
-def distance_check(params, pred, gt):
+def distance_check(params, pred, gt, tag="512x512"):
     """lpips_distance and its image gradient through the kernels against
     the plain chain, which runs on the CPU (the wrappers take the plain
     versions for CPU tensors)."""
@@ -1203,7 +1284,7 @@ def distance_check(params, pred, gt):
     rel = abs(d_k - d_p) / abs(d_p)
     cos = (g_k @ g_p / (g_k.norm() * g_p.norm())).item()
     norm_err = abs(g_k.norm().item() / g_p.norm().item() - 1)
-    print(f"lpips_distance 512x512: kernels {d_k:.7f} plain (CPU) {d_p:.7f} "
+    print(f"lpips_distance {tag}: kernels {d_k:.7f} plain (CPU) {d_p:.7f} "
           f"rel err {rel:.3e} (tolerance {DIST_RTOL}); image gradient cosine "
           f"{cos:.6f} (>= {GRAD_COS}), relative norm error {norm_err:.3e} "
           f"(<= {GRAD_NORM_RTOL}); {time.perf_counter() - t0:.1f} s")
@@ -1740,7 +1821,7 @@ def composite_phase(dev, hand_run_dir):
     hand_ckpts = os.path.join(hand_run_dir, "checkpoints")
     cfg = composite_config()
     apply_overrides(cfg, _cli_args()[2:])
-    ds = cli.build_dataset(cfg, dev)
+    ds = cli.build_dataset(cfg, "test", dev)
     hand0, vg0 = cli._load_model(hand_ckpts, dev)
     bone_tf = cli._bone_tf(ds, 0, vg0)
     placed = os.path.join(COMPOSITE_DIR, "object_placed", "checkpoints")
@@ -2426,6 +2507,390 @@ def render_phase(dev, hand_run_dir, val_psnr):
                    for k, v in engines.items()})
 
 
+def _render_rgba(means, cov6, colors, opacity, cam, dev):
+    """A render through the kernels, un-premultiplied, as RGBA uint8
+    [H, W, 4] on the card (alpha: 1 - the final transmittance), with no
+    pair budget (a budget cut truncates the frame); checks that binning
+    dropped no pair but the farthest of a tile over the 4,096-pair cap."""
+    n = means.shape[0]
+    with torch.no_grad():
+        out = render_gaussians(
+            means, cov6, means, torch.zeros(n, 16, 3, device=dev), opacity,
+            cam, torch.zeros(3, device=dev), colors_precomp=colors,
+            config=RasterConfig(backend="cuda", pair_budget_factor=0))
+        dropped = int(out.overflow) - int(out.overflow_far)
+        check(dropped == 0, f"brics capture: a render dropped {dropped} "
+              "pairs short of the per-tile cap")
+        alpha = (1.0 - out.t_final).clamp(0, 1)
+        rgb = (out.render / alpha.clamp(min=1e-6)[..., None]).clamp(0, 1)
+        return (torch.cat([rgb, alpha[..., None]], -1) * 255).round().to(
+            torch.uint8)
+
+
+def _crop(rgba):
+    """The bbox [xmin, ymin, xmax, ymax] of the lit pixels plus
+    BRICS_MARGIN, clipped to the frame, and the crop as numpy."""
+    lit = rgba[..., 3] > 0
+    rows = torch.nonzero(lit.any(1)).flatten().tolist()
+    cols = torch.nonzero(lit.any(0)).flatten().tolist()
+    h, w = lit.shape
+    if not rows:
+        rows, cols = [0], [0]
+    x0, y0 = max(cols[0] - BRICS_MARGIN, 0), max(rows[0] - BRICS_MARGIN, 0)
+    x1 = min(cols[-1] + 1 + BRICS_MARGIN, w)
+    y1 = min(rows[-1] + 1 + BRICS_MARGIN, h)
+    return (np.asarray([x0, y0, x1, y1], np.int64),
+            rgba[y0:y1, x0:x1].cpu().numpy())
+
+
+def brics_names(n):
+    return [f"brics-sbc-{i // 2 + 1:03d}_cam{i % 2}" for i in range(n)]
+
+
+def brics_dynamic_capture(root, dev):
+    """The dynamic capture (see BRICS_*): two action files of
+    BRICS_FRAMES // 2 frames each. Returns (crop bytes, crop count)."""
+    skel = hand20_skeleton()
+    seq = generate_flexion_sequence(skel, num_frames=BRICS_FRAMES,
+                                    device=dev)
+    heads, tails, rest = (seq["rest_heads"], seq["rest_tails"],
+                          seq["rest_matrixs"])
+    pts, cols = sample_gaussians_on_bones(heads, tails, rest,
+                                          BRICS_GT_PER_BONE, seed=11)
+    j, n = heads.shape[0], pts.shape[0]
+    bone_of = np.concatenate([np.tile(np.arange(j), BRICS_GT_PER_BONE),
+                              np.tile(np.arange(j), BRICS_GT_PER_BONE // 2)])
+    rng = np.random.RandomState(12)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    cov = covariance_from_scaling_rotation(
+        t(rng.uniform(0.002, 0.005, (n, 3))), t(rng.normal(size=(n, 4))))
+    skin, colors = t(np.eye(j)[bone_of]), t(cols)
+    opacity = t(rng.uniform(0.7, 0.98, n))
+    center = (heads.mean(0) + tails.mean(0)) / 2
+    cams = hemisphere_cameras(BRICS_VIEWS, BRICS_W, BRICS_H, dist=0.6,
+                              fov_deg=40.0, seed=13, center=center,
+                              device=dev)
+    names = brics_names(BRICS_VIEWS)
+    nbytes = count = 0
+    os.makedirs(root)
+    per_action = BRICS_FRAMES // 2
+    for a, action in enumerate(("grasp_a", "grasp_b")):
+        tree = {"K": {m: c.K.double().cpu().numpy()
+                      for m, c in zip(names, cams)},
+                "extr": {m: c.extr.double().cpu().numpy()[:3]
+                         for m, c in zip(names, cams)},
+                "frames": {}}
+        for k in range(per_action):
+            f = a * per_action + k
+            sk = skin_gaussians(t(pts), cov, skin, bone_deformation_transforms(
+                t(seq["pose_matrixs"][f]), t(rest)))
+            images, bbox = {}, {}
+            for m, cam in zip(names, cams):
+                bbox[m], images[m] = _crop(_render_rgba(
+                    sk.posed_xyz, sk.posed_cov, colors, opacity, cam, dev))
+                nbytes += images[m].nbytes
+                count += 1
+            md = dict(
+                bnames=np.asarray(
+                    [b.encode() for b in skel["bnames"]])[:, None],
+                bnames_parent=np.asarray(
+                    [b.encode() for b in skel["bnames_parent"]])[:, None],
+                rest_heads=heads, rest_tails=tails, rest_matrixs=rest,
+                pose_heads=seq["pose_heads"][f],
+                pose_tails=seq["pose_tails"][f],
+                pose_matrixs=seq["pose_matrixs"][f],
+                eulers=np.zeros((j, 3), np.float32),
+                root_translation=np.zeros(3, np.float32),
+                root_rotation=np.zeros(3, np.float32))
+            tree["frames"][str(5 * k)] = dict(images=images, bbox=bbox,
+                                              metadata=md)
+        hdf5.write_tree(os.path.join(root, f"{action}.hdf5"), tree)
+    return nbytes, count
+
+
+def brics_static_capture(root, dev):
+    """The static capture (see BRICS_*): RGBA PNGs, calib/optim_params.txt
+    (zero distortion) and mesh/ngp_mesh/mesh.ply."""
+    obj = gt_object_gaussians(n=40000, seed=0)
+    # a quarter of the size, gaussians a third as wide again (at 0.8 m a
+    # wider one spans more than binning's 64 tiles and is cut)
+    s, k = 0.25, 0.25 * 0.35
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    means = obj["means"] * s
+    cams = hemisphere_cameras(BRICS_STATIC_VIEWS, BRICS_W, BRICS_H,
+                              dist=0.8, fov_deg=40.0, seed=14, device=dev)
+    rows = []
+    for i, (name, cam) in enumerate(zip(brics_names(BRICS_STATIC_VIEWS),
+                                        cams)):
+        K = cam.K.double().cpu()
+        extr = cam.extr.double().cpu()
+        q = matrix_to_quaternion(extr[:3, :3]).tolist()  # wxyz
+        tv = extr[:3, 3].tolist()
+        rows.append(" ".join(map(str, [
+            i, BRICS_W, BRICS_H, repr(K[0, 0].item()), repr(K[1, 1].item()),
+            repr(K[0, 2].item()), repr(K[1, 2].item()), 0, 0, 0, 0, name,
+            *map(repr, q), *map(repr, tv)])))
+        rgba = _render_rgba(t(means), t(obj["cov6"] * k * k),
+                            t(obj["colors"]), t(obj["opacity"]), cam, dev)
+        dump_image(rgba.cpu().numpy(), os.path.join(
+            root, "images", "refined_seg", name, "000000.png"))
+    os.makedirs(os.path.join(root, "calib"))
+    with open(os.path.join(root, "calib", "optim_params.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    dump_points(means, os.path.join(root, "mesh", "ngp_mesh", "mesh.ply"))
+
+
+def _validate(kind, root, config):
+    """trainer.mode=validate_data through the CLI: (exit code, the
+    report's last line)."""
+    rc, _, lines, _, wall = _run_cli([
+        "--config-name", config, f"dataset.kind={kind}",
+        f"dataset.root={root}", f"dataset.width={BRICS_W}",
+        f"dataset.height={BRICS_H}", "trainer.mode=validate_data",
+        f"trainer.output_dir={BRICS_DIR}", "trainer.exp_name=validate"])
+    return rc, f"{lines[-1]} ({wall:.1f} s)"
+
+
+def _step_ms(tr, lo, hi):
+    return statistics.median(x * 1e3 for x in tr.timings["step_s"][lo:hi])
+
+
+def _loss_falls(run_dir, tag):
+    header, rows = _csv_rows(os.path.join(run_dir, "logs",
+                                          "train_metrics.csv"))
+    loss = [float(r[1]) for r in rows]
+    print(f"brics {tag}: loss {loss[0]:.6f} at step {rows[0][0]} -> "
+          f"{loss[-1]:.6f} at step {rows[-1][0]}")
+    check(all(math.isfinite(x) for x in loss) and loss[-1] < loss[0],
+          f"brics {tag}: the loss did not fall: {loss}")
+
+
+def brics_batch_checks(tr, dev):
+    """On one batch of the trained hand at 1280x720: both composite
+    kernels against their plain version, lpips_distance and its image
+    gradient through the kernels against the plain chain on the CPU."""
+    cfg, model = tr.cfg, tr.state.model
+    p = model.params
+    batch = tr.sample_batch()
+    cam = index_camera(batch["cameras"], 0)
+    with torch.no_grad():
+        posed, cov, tf = forward_gaussians(
+            p, model.active, resolve_skin_weights(model, tr.voxel_grid),
+            batch["bone_tf"], cfg.model)
+        colors = calculate_colors_from_sh(posed, get_features(p), p.xyz, cam,
+                                          cfg.model.sh_degree, tf)
+        proj = project_gaussians(posed, cov, cam, active=model.active)
+        r = cfg.raster
+        bins = bin_gaussians(proj, BRICS_W // TILE, BRICS_H // TILE,
+                             r.tg_max, r.lane_align, r.pair_budget_factor,
+                             r.max_pairs_per_tile, r.multi_frac)
+        pay = build_payload(proj, colors, get_opacity(p).reshape(-1), bins)
+        pred = render_gaussians(
+            posed, cov, p.xyz, get_features(p), get_opacity(p), cam,
+            torch.zeros(3, device=dev), sh_degree=cfg.model.sh_degree, tf=tf,
+            active=model.active,
+            config=make_raster_config(cfg)).render  # cfg's: "cuda"
+    composite_check(pay, bins, dev, f"brics {BRICS_W}x{BRICS_H}",
+                    width=BRICS_W, height=BRICS_H)
+    distance_check(lpips_mod.random_lpips_params(cfg.trainer.seed, "vgg",
+                                                 device=dev),
+                   pred.clamp(0, 1), batch["rgb"][0],
+                   tag=f"{BRICS_W}x{BRICS_H}")
+
+
+def brics_phase(dev):
+    """BRICS captures through the CLI on the card (docstring phase 12).
+    Returns the hand run's {kernel: launches}."""
+    shutil.rmtree(BRICS_DIR, ignore_errors=True)
+    dyn = os.path.join(BRICS_DIR, "capture_dynamic")
+    static = os.path.join(BRICS_DIR, "capture_static")
+    try:
+        return _brics_runs(dev, dyn, static)
+    finally:  # the captures (~130 MB) never come back from the card
+        for d in (dyn, static, os.path.join(BRICS_DIR, "capture_bad")):
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def _brics_runs(dev, dyn, static):
+    t0 = time.perf_counter()
+    nbytes, count = brics_dynamic_capture(dyn, dev)
+    brics_static_capture(static, dev)
+    files = sorted(os.listdir(dyn))
+    mib = sum(os.path.getsize(os.path.join(dyn, f)) for f in files) / 2**20
+    print(f"brics: captures made in {time.perf_counter() - t0:.1f} s: "
+          f"{files}, {mib:.1f} MiB, {count} crops of {nbytes / count / 2**10:.0f} KiB on "
+          f"average ({BRICS_VIEWS} cameras x {BRICS_FRAMES} frames); "
+          f"{BRICS_STATIC_VIEWS} static PNGs")
+
+    # validate_data: both clean, and a copy with one bbox broken
+    for kind, root, config in (("brics_dynamic", dyn, "HAND_GAUSSIAN"),
+                               ("brics_static", static, "OBJ_GAUSSIAN")):
+        rc, last = _validate(kind, root, config)
+        print(f"brics validate_data {kind}: exit {rc}; {last}")
+        check(rc == 0, f"brics: validate_data finds {rc} errors in {kind}")
+    bad = os.path.join(BRICS_DIR, "capture_bad")
+    os.makedirs(bad)
+    shutil.copy(os.path.join(dyn, "grasp_a.hdf5"), bad)
+    with hdf5.File(os.path.join(bad, "grasp_a.hdf5")) as f:
+        at = f["frames/0/bbox"][brics_names(1)[0]].offset()
+    with open(os.path.join(bad, "grasp_a.hdf5"), "r+b") as f:
+        f.seek(at)
+        f.write(np.asarray([500, 0, 400, BRICS_H], "<i8").tobytes())
+    rc, last = _validate("brics_dynamic", bad, "HAND_GAUSSIAN")
+    print(f"brics validate_data with xmin > xmax in one bbox: exit {rc}; "
+          f"{last}")
+    check(rc >= 1, "brics: validate_data misses a broken bbox")
+    shutil.rmtree(bad)
+
+    # the loaders alone: load seconds, get_batch ms, C++ against numpy
+    t1 = time.perf_counter()
+    ds = BricsDynamicDataset(dyn, BRICS_W, BRICS_H, device=dev)
+    dyn_load = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    sds = BricsStaticDataset(static, os.path.join(static, "calib"), BRICS_W,
+                             BRICS_H, device=dev)
+    static_load = time.perf_counter() - t1
+    rng = np.random.RandomState(15)
+    read_ms, asm_ms, get_ms = [], [], []
+    bg = np.zeros(3, np.float32)
+    for _ in range(BRICS_TIMED_BATCHES):
+        f, v = rng.randint(ds.num_frames), rng.randint(ds.num_views)
+        t1 = time.perf_counter()
+        crops, bboxes = ds.read_crops(f, [v])
+        t2 = time.perf_counter()
+        prefetch_mod.assemble_batch_native(crops, bboxes, BRICS_H, BRICS_W,
+                                           bg)
+        t3 = time.perf_counter()
+        ds.get_batch(f, [v])
+        t4 = time.perf_counter()
+        read_ms.append((t2 - t1) * 1e3)
+        asm_ms.append((t3 - t2) * 1e3)
+        get_ms.append((t4 - t3) * 1e3)
+    # the trainer's copy of such a batch to the card without the image
+    # cache: a pageable 14.7 MB (rgb and mask float32), once a step
+    raw = ds.get_batch(0, [0])
+    h2d_ms = cuda_ms(lambda: [torch.as_tensor(raw[k], device=dev)
+                              for k in ("rgb", "mask")], 20)
+    crops, bboxes = ds.read_crops(0, np.arange(ds.num_views))
+    got = prefetch_mod.assemble_batch_native(crops, bboxes, BRICS_H,
+                                             BRICS_W, bg)
+    want = prefetch_mod.assemble_batch_numpy(crops, bboxes, BRICS_H,
+                                             BRICS_W, bg)
+    asm_err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    print(f"brics loaders: dynamic train split {ds.num_frames} frames x "
+          f"{ds.num_views} cameras loaded in {dyn_load:.3f} s; static "
+          f"{sds.num_views} train cameras of {BRICS_STATIC_VIEWS} (skip list "
+          f"and val split) loaded in {static_load:.3f} s; get_batch of one "
+          f"{BRICS_W}x{BRICS_H} view median {statistics.median(get_ms):.3f} "
+          f"ms (HDF5 read {statistics.median(read_ms):.3f}, C++ assembly "
+          f"{statistics.median(asm_ms):.3f}; {BRICS_TIMED_BATCHES} random "
+          f"views); its pageable copy to the card "
+          f"({sum(a.nbytes for a in raw.values()) / 1e6:.1f} MB) {h2d_ms:.3f} "
+          f"ms; C++ against numpy on frame 0's {ds.num_views} views: "
+          f"max abs err {asm_err:.3e} (tolerance 1e-6)")
+    check(sds.num_views == BRICS_STATIC_VIEWS - 12 - 2,
+          f"brics: {sds.num_views} static train cameras")
+    check(asm_err <= 1e-6, "brics: the C++ assembly differs from numpy")
+    ds.close()
+    del ds, sds
+
+    # HAND_GAUSSIAN on the dynamic capture, every batch from HDF5
+    calls = prefetch_mod.assemble_batch_native.calls
+    tr, launches, _, peak, wall = _run_cli([
+        "--config-name", "HAND_GAUSSIAN", "dataset.kind=brics_dynamic",
+        f"dataset.root={dyn}", "dataset.subject=brics_smoke",
+        f"dataset.width={BRICS_W}", f"dataset.height={BRICS_H}",
+        f"dataset.num_frames={BRICS_FRAMES}", f"capacity={BRICS_CAPACITY}",
+        f"dataset.sample_size={BRICS_SAMPLE_SIZE}",
+        "trainer.device_cache_mb=0", f"trainer.max_steps={BRICS_STEPS}",
+        "trainer.val_every=0", "trainer.checkpoint_every=0",
+        "trainer.log_every=10", f"model.start_lpips_iter={BRICS_LPIPS_FROM}",
+        "loss.lpips_random_in_loss=true", f"trainer.output_dir={BRICS_DIR}",
+        "trainer.exp_name=hand"])
+    calls = prefetch_mod.assemble_batch_native.calls - calls
+    n_lpips = BRICS_STEPS - BRICS_LPIPS_FROM
+    n_eval = launches["composite_fwd"] - BRICS_STEPS
+    print(f"brics hand: {BRICS_STEPS} steps through the CLI in {wall:.1f} s, "
+          f"{int(tr.state.model.active.sum())} of {BRICS_CAPACITY} slots "
+          f"live, {tr.dataset.num_frames} train frames x "
+          f"{tr.dataset.num_views} cameras at {tr.dataset.width}x"
+          f"{tr.dataset.height}; fit loop median "
+          f"{_step_ms(tr, WARMUP, BRICS_LPIPS_FROM):.3f} ms/step before step "
+          f"{BRICS_LPIPS_FROM} and "
+          f"{_step_ms(tr, BRICS_LPIPS_FROM + WARMUP, None):.3f} "
+          f"with LPIPS; peak {peak:.1f} MiB; {calls} C++ assemblies; "
+          f"launches {launches} (composite forward: {BRICS_STEPS} steps, "
+          f"{n_eval} eval renders; LPIPS kernels: {n_lpips} steps, the gt's "
+          f"VGG16 forward each step without the image cache)")
+    check(tr.cfg.raster.backend == "cuda" and tr.device.type == "cuda",
+          f"brics hand: backend {tr.cfg.raster.backend} on {tr.device}")
+    check(tr._device_cache is None and calls >= BRICS_STEPS,
+          f"brics hand: {calls} assemblies for {BRICS_STEPS} steps")
+    _loss_falls(tr.out_dir, "hand")
+    want_n = {"composite_bwd": BRICS_STEPS, "conv3x3_layout": 26 * n_lpips,
+              "conv3x3_layout_dx": 13 * n_lpips,
+              "lpips_head_fwd": 5 * n_lpips, "lpips_head_bwd": 5 * n_lpips,
+              "conv3x3": 0}
+    for name, n in want_n.items():
+        check(launches[name] == n,
+              f"brics hand: {name} launched {launches[name]} times, not {n}")
+    check(n_eval >= 1, f"brics hand: {n_eval} eval renders")
+    brics_batch_checks(tr, dev)
+    hand_dir = tr.out_dir
+    tr.dataset.close()
+    tr.val_dataset.close()
+    del tr
+
+    # OBJ_GAUSSIAN on the static capture, over the device image cache
+    otr, olaunches, _, opeak, owall = _run_cli([
+        "--config-name", "OBJ_GAUSSIAN", "dataset.kind=brics_static",
+        f"dataset.root={static}", "dataset.subject=brics_smoke",
+        f"dataset.width={BRICS_W}", f"dataset.height={BRICS_H}",
+        "capacity=131072", "dataset.sample_size=65536",
+        f"trainer.max_steps={BRICS_OBJ_STEPS}", "trainer.val_every=50",
+        "trainer.checkpoint_every=0", "trainer.log_every=10",
+        f"trainer.output_dir={BRICS_DIR}", "trainer.exp_name=obj"])
+    _, vrows = _csv_rows(os.path.join(otr.out_dir, "results",
+                                      "val_results.csv"))
+    images = os.listdir(os.path.join(otr.out_dir, "results", "val_results",
+                                     "images"))
+    print(f"brics object: {BRICS_OBJ_STEPS} steps through the CLI in "
+          f"{owall:.1f} s, {int(otr.state.model.active.sum())} of 131072 "
+          f"slots live, over a {otr.timings['image_cache_mb']:.1f} MiB "
+          f"image cache ({otr.dataset.num_views} cameras); fit loop median "
+          f"{_step_ms(otr, WARMUP, None):.3f} ms/step; peak {opeak:.1f} MiB; "
+          f"val on {otr.val_dataset.num_views} held-out cameras: psnr "
+          f"{[r[2] for r in vrows]} at steps {[r[1] for r in vrows]}, "
+          f"{len(images)} images; launches {olaunches}")
+    check(otr._device_cache is not None, "brics object: no image cache")
+    check(int(otr.state.model.active.sum()) > 0,
+          "brics object: the mask prune left no gaussian")
+    check(otr.val_dataset.num_views == 2 and vrows and all(
+        math.isfinite(float(r[2])) for r in vrows) and len(images) >= 2,
+        "brics object: validation on the 2 held-out cameras")
+    check(olaunches["composite_bwd"] == BRICS_OBJ_STEPS,
+          f"brics object: composite_bwd {olaunches['composite_bwd']}")
+    _loss_falls(otr.out_dir, "object")
+    obj_dir = otr.out_dir
+    del otr
+    for run in (hand_dir, obj_dir):  # keep configs, CSVs and an image
+        for sub in ("checkpoints", os.path.join("results", "val_results",
+                                                "gaussians")):
+            shutil.rmtree(os.path.join(run, sub), ignore_errors=True)
+        img_dir = os.path.join(run, "results", "val_results", "images")
+        for name in sorted(os.listdir(img_dir))[1:] if os.path.isdir(
+                img_dir) else []:
+            os.remove(os.path.join(img_dir, name))
+    print(f"brics phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2437,7 +2902,8 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    names = ["composite", "conv3x3", "lpips_head"]
+    # the three kernel sources (nvcc) and the host assembly (g++)
+    names = ["composite", "conv3x3", "lpips_head", "image_ops"]
     cached = [n for n in names if cuda_build.library_path(n).exists()
               and cuda_build.log_path(n).exists()]
     logs = cuda_build.build(names)
@@ -2498,10 +2964,8 @@ def main() -> int:
               f"(test worst_cases, gt renders included), "
               f"{rend['cano_fwd']} (test canonical); composite_bwd 0; "
               f"times {json.dumps(rend)}")
-        # the contact stage's path: the COMPOSITE runs; the composite
-        # kernels' counts in the kernels line are theirs (the LPIPS
-        # kernels' the trainer's; the earlier paths' are on their own
-        # lines above)
+        # the contact stage's path: the COMPOSITE runs, counted on a line
+        # of their own below
         comp_launches = composite_phase(dev, hand_run_dir)
     finally:
         for sub in ("checkpoints", os.path.join("results", "val_results",
@@ -2513,8 +2977,10 @@ def main() -> int:
                       ignore_errors=True)
     print(f"composite phase launches over its {len(COMPOSITE_RUNS)} "
           f"COMPOSITE runs: {comp_launches}")
-    launches.update({n: comp_launches[n] for n in ("composite_fwd",
-                                                   "composite_bwd")})
+    # this slice's path: HAND_GAUSSIAN on a BRICS capture at 1280x720;
+    # the kernels line carries its counts (the earlier paths' are on
+    # their own lines above)
+    launches.update(brics_phase(dev))
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name],

@@ -26,12 +26,25 @@ a camera path (render_path), or run a test epoch (test).
   python -m manus_tpu_torch.main --config-name HAND_GAUSSIAN \\
       trainer.mode=test dataset.worst_cases=true render_ckpt_dir=...
 
+  python -m manus_tpu_torch.main --config-name HAND_GAUSSIAN \\
+      dataset.kind=brics_dynamic dataset.root=<dir of action .hdf5 files> \\
+      dataset.width=1280 dataset.height=720 trainer.exp_name=hand
+  python -m manus_tpu_torch.main --config-name OBJ_GAUSSIAN \\
+      dataset.kind=brics_static dataset.root=<capture dir> \\
+      dataset.width=1280 dataset.height=720 trainer.exp_name=obj
+  python -m manus_tpu_torch.main --config-name OBJ_GAUSSIAN \\
+      dataset.kind=brics_static dataset.root=... trainer.mode=validate_data
+
 The JAX package's CLI (main.py) has the same shape, and a run directory
 of either package resumes under the other. Runs go to the CUDA card
-unless --device names another device. The synthetic datasets are the
-ported data; the other modes and workloads raise NotImplementedError with
-the ROADMAP item (Queue A) that ports them. A video the JAX CLI writes as
-an mp4 is an animated PNG here, at the same stem (utils/io.dump_video).
+unless --device names another device; trainer.mode=validate_data checks
+a capture on the host, touches no device, and exits with its error
+count. Data comes from the synthetic scenes or from BRICS captures
+(dataset.kind=brics_static: segmented PNGs with calib/optim_params.txt
+under dataset.root; brics_dynamic: one HDF5 file an action), read without
+h5py or OpenCV. Multi-GPU runs raise NotImplementedError with the ROADMAP
+item (Queue A) that ports them. A video the JAX CLI writes as an mp4 is
+an animated PNG here, at the same stem (utils/io.dump_video).
 """
 from __future__ import annotations
 
@@ -39,6 +52,7 @@ import argparse
 import copy
 import json
 import os
+import sys
 import time
 from typing import NamedTuple, Optional
 
@@ -53,6 +67,8 @@ from manus_tpu_torch.config import (
     save_config,
 )
 from manus_tpu_torch.data import synthetic
+from manus_tpu_torch.data.brics import BricsDynamicDataset, BricsStaticDataset
+from manus_tpu_torch.data.validate import report, validate_capture
 from manus_tpu_torch.data.voxel import (
     MANO_REST,
     MANO_TO_OURS,
@@ -98,29 +114,39 @@ from manus_tpu_torch.utils.io import (
 )
 from manus_tpu_torch.utils.losses import psnr as psnr_fn
 
-# what is not ported -> the ROADMAP Queue A item that ports it
-DATA = "A7 (the data half: the BRICS readers and validate_data)"
-NOT_PORTED_MODES = {"validate_data": DATA}
-
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported yet: ROADMAP Queue A item {item}")
 
 
-def build_dataset(cfg, device=None):
-    """The synthetic scene of the workload on `device` (the BRICS loaders
-    are not ported); run_train splits it in memory."""
+def build_dataset(cfg, split: str, device=None):
+    """The dataset of cfg.dataset.kind on `device`: the synthetic scene of
+    the workload (whole: run_train splits it in memory), or a BRICS
+    capture under dataset.root in `split` ("train", "val" or "test": the
+    static scene's first two cameras are val and test, the dynamic
+    scene's tail frames; calib/ holds the static calibration)."""
     d = cfg.dataset
-    if d.kind != "synthetic":
-        _not_ported(f"dataset.kind={d.kind!r}", DATA)
-    if cfg.workload == "object":
-        return synthetic.build_synthetic_static(
+    if d.kind == "synthetic":
+        if cfg.workload == "object":
+            return synthetic.build_synthetic_static(
+                width=d.width, height=d.height, num_cameras=d.num_cameras,
+                bg_color=d.bg_color, device=device)
+        return synthetic.build_synthetic_dynamic(
             width=d.width, height=d.height, num_cameras=d.num_cameras,
-            bg_color=d.bg_color, device=device)
-    return synthetic.build_synthetic_dynamic(
-        width=d.width, height=d.height, num_cameras=d.num_cameras,
-        num_frames=max(d.num_frames, 2), bg_color=d.bg_color, device=device)
+            num_frames=max(d.num_frames, 2), bg_color=d.bg_color,
+            device=device)
+    if d.kind == "brics_static":
+        return BricsStaticDataset(
+            root_dir=d.root, params_dir=os.path.join(d.root, "calib"),
+            width=d.width, height=d.height, split=split, bg_color=d.bg_color,
+            device=device)
+    if d.kind == "brics_dynamic":
+        return BricsDynamicDataset(
+            root_dir=d.root, width=d.width, height=d.height, split=split,
+            bg_color=d.bg_color, num_time_steps=d.num_frames,
+            split_ratio=d.split_ratio, device=device)
+    raise ValueError(f"unknown dataset kind {d.kind}")
 
 
 def build_hand_pieces(cfg, dataset, device=None):
@@ -156,16 +182,20 @@ def run_train(cfg, out_dir, device=None) -> Trainer:
     cameras; dynamic: the tail frames), the init model, train, and print
     the final val PSNR. Returns the Trainer."""
     device = resolve_device(device)
-    dataset = build_dataset(cfg, device)
-    if cfg.workload == "object":
+    dataset = build_dataset(cfg, "train", device)
+    if cfg.dataset.kind != "synthetic":
+        val_dataset = build_dataset(cfg, "val", device)
+    elif cfg.workload == "object":
         dataset, val_dataset = synthetic.split_synthetic_static(dataset)
+    else:
+        dataset, val_dataset = synthetic.split_synthetic_dynamic(
+            dataset, cfg.dataset.split_ratio)
+    if cfg.workload == "object":
         pts, cols = dataset.sample_gaussians(cfg.dataset.sample_size)
         model = init_gaussian_model(pts, cols, cfg.capacity, opts=cfg.model,
                                     device=device)
         voxel_grid, articulated = None, False
     else:
-        dataset, val_dataset = synthetic.split_synthetic_dynamic(
-            dataset, cfg.dataset.split_ratio)
         model, voxel_grid = build_hand_pieces(cfg, dataset, device)
         articulated = True
     tr = Trainer(cfg, dataset, model, articulated, voxel_grid,
@@ -231,7 +261,7 @@ def run_composite(cfg, out_dir, device=None) -> CompositeRun:
     raster_cfg = raster_cfg._replace(
         backend=resolve_raster_backend(raster_cfg.backend, device))
     render_fn = make_composite_render(cfg, raster_cfg, mode)  # checks mode
-    dataset = build_dataset(cfg, device)
+    dataset = build_dataset(cfg, "test", device)
     hand, hand_vg = _load_model(cfg.hand_ckpt_dir, device)
     obj, _ = _load_model(cfg.object_ckpt_dir, device)
 
@@ -444,7 +474,7 @@ def run_test(cfg, out_dir, device=None) -> RenderRun:
                          "dynamic scene; the object's has no frames")
     cfg = copy.deepcopy(cfg)
     cfg.dataset.split_ratio = 0.0  # every frame (the reference's base.py)
-    dataset = build_dataset(cfg, device)
+    dataset = build_dataset(cfg, "train", device)
     model, voxel_grid, raster_cfg = _load_render_model(cfg, device)
     render_one = _make_render_one(cfg, model, voxel_grid, raster_cfg)
     res_dir = os.path.join(out_dir, "results", "eval_results")
@@ -531,10 +561,30 @@ def run_eval_contacts(cfg, out_dir, device=None) -> dict:
     return scores
 
 
+def _run_dir(cfg) -> str:
+    """The run directory, made, with the config snapshot in it."""
+    out_dir = os.path.join(
+        cfg.trainer.output_dir, cfg.trainer.project,
+        cfg.dataset.subject or "synthetic", cfg.trainer.exp_name,
+    )
+    os.makedirs(out_dir, exist_ok=True)
+    save_config(cfg, os.path.join(out_dir, "config.json"))
+    return out_dir
+
+
+def run_validate_data(cfg) -> int:
+    """trainer.mode=validate_data: check the capture under dataset.root
+    against the loaders' contracts on the host (no device), print every
+    finding and return the number of errors."""
+    _run_dir(cfg)
+    return report(validate_capture(cfg))
+
+
 def main(argv=None):
     """Parse the CLI and run. Returns the Trainer of a training run, the
     CompositeRun of COMPOSITE, eval_contacts' scores, the RenderRun of
-    render_path and test, or the path make_path or make_pose wrote."""
+    render_path and test, the path make_path or make_pose wrote, or
+    validate_data's error count (the process's exit code)."""
     parser = argparse.ArgumentParser(prog="python -m manus_tpu_torch.main")
     parser.add_argument(
         "--config-name", required=True,
@@ -549,8 +599,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     device = torch.device(args.device)
-    if device.type == "cuda":
-        resolve_device()  # raises where there is no card
     if args.config_name in CONFIGS:
         cfg = CONFIGS[args.config_name]()
     elif os.path.exists(args.config_name):
@@ -562,6 +610,10 @@ def main(argv=None):
             f"--config-name must be one of {sorted(CONFIGS)} or an "
             f"existing run dir / config.json (got {args.config_name!r})")
     apply_overrides(cfg, args.overrides)
+    if cfg.trainer.mode == "validate_data":
+        return run_validate_data(cfg)
+    if device.type == "cuda":
+        resolve_device()  # raises where there is no card
     resolve_raster_backend(cfg.raster.backend, device)  # raises early
 
     if cfg.trainer.distributed:
@@ -574,19 +626,12 @@ def main(argv=None):
         cfg.trainer.mode = "train"
     # the JAX CLI's order: these modes first, then the workload, then test
     mode = cfg.trainer.mode
-    if mode in NOT_PORTED_MODES:
-        _not_ported(f"trainer.mode={mode!r}", NOT_PORTED_MODES[mode])
     early = ("make_path", "make_pose", "eval_contacts", "render_path")
     composite = mode not in early and cfg.workload == "composite"
     if mode not in early + ("train", "test") and not composite:
         raise ValueError(f"unknown trainer.mode {cfg.trainer.mode!r}")
 
-    out_dir = os.path.join(
-        cfg.trainer.output_dir, cfg.trainer.project,
-        cfg.dataset.subject or "synthetic", cfg.trainer.exp_name,
-    )
-    os.makedirs(out_dir, exist_ok=True)
-    save_config(cfg, os.path.join(out_dir, "config.json"))
+    out_dir = _run_dir(cfg)
     np.random.seed(cfg.trainer.seed)
     torch.manual_seed(cfg.trainer.seed)
     if cfg.trainer.debug_nans:
@@ -607,4 +652,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    out = main()
+    sys.exit(out if isinstance(out, int) else 0)

@@ -81,10 +81,16 @@ def make_camera(
     znear: float = Z_NEAR,
     zfar: float = Z_FAR,
     device=None,
+    resize_factor: float = 1.0,
 ) -> Camera:
-    """Camera from OpenCV intrinsics and [3,4] or [4,4] extrinsics."""
+    """Camera from OpenCV intrinsics and [3,4] or [4,4] extrinsics. With
+    resize_factor f, the camera of the image resized by f: K's first two
+    rows times f, the size int(x * f + 0.5) (the reference's rounding)."""
     device = resolve_device(device)
     K = np.array(K, dtype=np.float64)
+    K[:2, :] *= resize_factor
+    width = int(width * resize_factor + 0.5)
+    height = int(height * resize_factor + 0.5)
     fovx = focal2fov(K[0, 0], width)
     fovy = focal2fov(K[1, 1], height)
     extr = np.array(extr, dtype=np.float64)

@@ -2,8 +2,9 @@
 cpu): the counterparts of tests/test_cli.py's test_cli_training_artifacts,
 test_cli_resume_from_run_dir, test_cli_composite and
 test_cli_composite_finetune against the JAX CLI, a JAX run directory
-resumed by the port, eval_contacts against the JAX CLI's, and the modes
-that are not ported."""
+resumed by the port, eval_contacts against the JAX CLI's, the modes
+that are not ported, and validate_data and training on BRICS captures
+against the JAX CLI."""
 import json
 import os
 import shutil
@@ -16,6 +17,7 @@ import main as jmain
 from manus_tpu_torch import main as tmain
 from manus_tpu_torch.train import checkpoint as tck
 from manus_tpu_torch.utils.io import dump_image, read_png, read_video
+from tests.test_torch_brics import write_dynamic_capture, write_static_capture
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -122,8 +124,8 @@ def test_a_jax_run_directory_resumes_in_the_port(tmp_path):
     (["trainer.mode=render_path"], None),
     (["trainer.mode=make_path"], None),
     (["trainer.mode=make_pose"], None),
-    (["trainer.mode=validate_data"], "A7"),
-    (["dataset.kind=brics_dynamic"], "A7"),
+    (["trainer.mode=validate_data"], "data"),
+    (["dataset.kind=brics_dynamic"], "data"),
     (["trainer.distributed=true"], "A8"),
     (["trainer.data_axis=2", "trainer.batch_views=2"], "item 8"),
 ], ids=["test", "render_path", "make_path", "make_pose", "validate_data",
@@ -132,9 +134,16 @@ def test_modes_not_ported_raise(overrides, what, tmp_path, request):
     """What is not ported raises NotImplementedError naming its ROADMAP
     item. The four modes of the evaluation slice (what None) raised so
     until they were ported; now each runs on cli_out's hand and returns
-    what it made."""
+    what it made. The data modes (what "data") raised until the BRICS
+    readers were ported; now each matches the JAX CLI on a capture."""
     argv = ["--device", "cpu", "--config-name", "HAND_GAUSSIAN", *COMMON,
             *HAND, *overrides, f"trainer.output_dir={tmp_path}"]
+    if what == "data":
+        if "trainer.mode=validate_data" in overrides:
+            _validate_data_matches_jax(tmp_path)
+        else:
+            _brics_training_matches_jax(tmp_path)
+        return
     if what is not None:
         with pytest.raises(NotImplementedError, match=what):
             tmain.main(argv)
@@ -154,6 +163,61 @@ def test_modes_not_ported_raise(overrides, what, tmp_path, request):
         assert os.path.exists(out)
     else:
         assert len(out.frames) == 2 and os.path.exists(out.video)
+
+
+def _validate_data_matches_jax(tmp_path):
+    """trainer.mode=validate_data exits with JAX's error count on a clean
+    static capture (0) and on one with a broken quaternion and a missing
+    camera directory."""
+    root = write_static_capture(str(tmp_path / "static"))
+    bad = str(tmp_path / "bad")
+    shutil.copytree(root, bad)
+    ptxt = os.path.join(bad, "calib", "optim_params.txt")
+    with open(ptxt) as f:
+        rows = f.read().splitlines()
+    rows[0] = " ".join(rows[0].split()[:12] + ["9.0"]
+                       + rows[0].split()[13:])
+    with open(ptxt, "w") as f:
+        f.write("\n".join(rows))
+    shutil.rmtree(os.path.join(bad, "images", "refined_seg", "cam002"))
+    for capture, errors in ((root, 0), (bad, 2)):
+        argv = ["--config-name", "OBJ_GAUSSIAN", "dataset.kind=brics_static",
+                f"dataset.root={capture}", "trainer.mode=validate_data",
+                f"trainer.output_dir={tmp_path / 'out'}"]
+        rc = tmain.main(argv)
+        assert rc == jmain.main(argv) == errors
+
+
+def _brics_training_matches_jax(tmp_path):
+    """3 steps of HAND_GAUSSIAN on a dynamic capture (two actions, 20
+    bones, 64x64 crops) and of OBJ_GAUSSIAN on a static one (lens
+    distortion, 3 train cameras) through both CLIs: every step's loss
+    within 1e-4 of JAX's."""
+    dyn = write_dynamic_capture(str(tmp_path / "dynamic"))
+    static = write_static_capture(str(tmp_path / "static"))
+    steps = ["trainer.max_steps=3", "trainer.log_every=1",
+             "trainer.checkpoint_every=0", "trainer.val_every=0"]
+    runs = {
+        "hand": ["--config-name", "HAND_GAUSSIAN", *COMMON, *HAND, *steps,
+                 "dataset.kind=brics_dynamic", f"dataset.root={dyn}"],
+        "obj": ["--config-name", "OBJ_GAUSSIAN", *COMMON, *OBJ, *steps,
+                "dataset.kind=brics_static", f"dataset.root={static}"],
+    }
+    for exp, argv in runs.items():
+        losses = []
+        for cli, out in ((jmain, "jax"), (tmain, "torch")):
+            args = argv + [f"trainer.exp_name={exp}",
+                           f"trainer.output_dir={tmp_path / out}"]
+            cli.main(["--device", "cpu", *args] if cli is tmain else args)
+            csv_path = os.path.join(tmp_path, out, "manus_tpu", "synthetic",
+                                    exp, "logs", "train_metrics.csv")
+            with open(csv_path) as f:
+                rows = [line.split(",") for line in f.read().splitlines()]
+            assert rows[0][:2] == ["step", "loss"]
+            losses.append([float(r[1]) for r in rows[1:]])
+        assert len(losses[0]) == 3
+        np.testing.assert_allclose(losses[1], losses[0], atol=1e-4,
+                                   err_msg=exp)
 
 
 @pytest.fixture(scope="module")
@@ -290,7 +354,7 @@ def test_finetune_object_cli_run(cli_out, touching_obj):
 
     cfg = composite_config()
     tmain.apply_overrides(cfg, [*COMMON, "dataset.num_frames=2"])
-    ds = tmain.build_dataset(cfg, "cpu")
+    ds = tmain.build_dataset(cfg, "test", "cpu")
     raster = make_raster_config(cfg)._replace(backend="torch")
     step = make_composite_finetune_step(cfg, raster, "object",
                                         voxel_grid=run.models.voxel_grid)

@@ -761,3 +761,56 @@ def test_cuda_ik_loop_matches_cpu_without_sync(dev, monkeypatch):
     assert abs(lg - lc) <= 1e-4 * lc
     torch.testing.assert_close(ag.cpu(), ac, rtol=0, atol=1e-5)
     torch.testing.assert_close(tg.cpu(), tc, rtol=0, atol=1e-5)
+
+
+def test_cuda_brics_capture_loads_on_the_card(dev, tmp_path):
+    """A dynamic capture written by hdf5.write_tree (no h5py on the card's
+    machine) loads with its cameras and bones on the card, and its
+    batches assembled by the C++ library equal the numpy assembly."""
+    from chip_smoke import hand20_skeleton
+    from manus_tpu_torch.data import hdf5, prefetch
+    from manus_tpu_torch.data.brics import BricsDynamicDataset
+    from manus_tpu_torch.data.synthetic import hemisphere_cameras
+    from manus_tpu_torch.preprocess.novel_pose import (
+        generate_flexion_sequence)
+
+    rng = np.random.RandomState(0)
+    w, h = 96, 64
+    cams = hemisphere_cameras(3, w, h, device="cpu")
+    skel = hand20_skeleton()
+    seq = generate_flexion_sequence(skel, num_frames=2, device="cpu")
+    names = [f"cam{i:03d}" for i in range(3)]
+    tree = {"K": {n: c.K.double().numpy() for n, c in zip(names, cams)},
+            "extr": {n: c.extr.double().numpy()[:3]
+                     for n, c in zip(names, cams)}, "frames": {}}
+    for f in range(2):
+        boxes = {n: np.asarray([5 + i, 3, 60 + i, 50]) for i, n in
+                 enumerate(names)}
+        md = {k: seq[k][f] if k.startswith("pose_") else seq[k]
+              for k in ("rest_heads", "rest_tails", "rest_matrixs",
+                        "pose_heads", "pose_tails", "pose_matrixs")}
+        md.update(
+            bnames=np.asarray([b.encode() for b in skel["bnames"]])[:, None],
+            bnames_parent=np.asarray(
+                [b.encode() for b in skel["bnames_parent"]])[:, None],
+            eulers=np.zeros((20, 3), np.float32),
+            root_translation=np.zeros(3, np.float32),
+            root_rotation=np.zeros(3, np.float32))
+        tree["frames"][str(f)] = {
+            "images": {n: rng.randint(0, 256, (47, 55, 4)).astype(np.uint8)
+                       for n in names},
+            "bbox": boxes, "metadata": md}
+    hdf5.write_tree(tmp_path / "act.hdf5", tree)
+    ds = BricsDynamicDataset(str(tmp_path), w, h, split_ratio=0)
+    assert ds.cameras.K.device.type == "cuda"
+    assert ds.bones_rest.transforms.device.type == "cuda"
+    assert ds.bones_posed[1].transforms.device.type == "cuda"
+    np.testing.assert_allclose(ds.bones_posed[1].transforms.cpu().numpy(),
+                               seq["pose_matrixs"][1], atol=1e-6)
+    crops, bboxes = ds.read_crops(1, np.arange(3))
+    got = ds.get_batch(1, np.arange(3))
+    want = prefetch.assemble_batch_numpy(crops, bboxes, h, w,
+                                         np.zeros(3, np.float32))
+    np.testing.assert_allclose(got["rgb"], want[0], atol=1e-6)
+    np.testing.assert_allclose(got["mask"], want[1], atol=1e-6)
+    ds.close()
