@@ -1,7 +1,7 @@
 """Run the PyTorch port on one NVIDIA card: the HAND_GAUSSIAN training step
 and its kernels, the training CLI, the render, test and pose entry points
-with the preprocessing pipeline, the contact stage (COMPOSITE), and
-training on BRICS captures read from disk.
+with the preprocessing pipeline, the contact stage (COMPOSITE), training
+on BRICS captures read from disk, and sharded training over ranks.
 
     python3 chip_smoke.py
 
@@ -162,9 +162,37 @@ Phases, each of which exits non-zero on failure:
      the 2 held-out cameras. The captures, checkpoints and PLYs are
      deleted afterwards.
 
+ 13. parallel: the sharded training path (manus_tpu_torch/parallel/).
+     (a) The composite kernels' tile-id form on the bench scene's view at
+     each of PAR_SHAPES (512x512 and 1280x720) with PAR_G owners: each
+     owner's tiles as the sharded render bins them (owner-mode
+     bin_gaussians) against the plain version, equal bits over two
+     launches, HBM-cold times beside the full grid's; the full binning's
+     segments dealt to the owners, gathered and un-permuted, equal to the
+     full-grid launch's rows bit for bit; each owner's depth ranges of the
+     PAR_HOT deepest tiles (hybrid) against the plain version, composed
+     (api._over_compose) within HYBRID_ATOL of the full grid. (b) The
+     training CLI as ranks that share the card, each its own process,
+     over gloo (NCCL refuses two ranks on one card), every collective on
+     a CUDA tensor staged through the host by the group's backend and
+     counted; what the installed gloo does with a CUDA tensor itself is
+     probed and printed. Two ranks: one owner step over gauss 2 at
+     FLAGSHIP_CAPACITY gaussians with voxel skinning against the
+     single-process step on the same batch (STEP_RTOL, PARAM_NORM_TOL),
+     then PAR_RUNS[0]; four ranks: PAR_RUNS[1]. Each run: PAR_STEPS steps
+     of the trainer phase's HAND_GAUSSIAN default at full width with
+     LPIPS from step 0; the ranks' losses and state digests equal, the
+     loss falling, the tile-id launches once a local view and step in
+     owner mode. (c) The collectives over NCCL at world size 1 in this
+     process, and across the cards where the machine has several.
+
+Every composite check prints, for Queue C1, the pixels it leaves out of
+the backward comparison with their log T_final in both walks and
+whether each sits at log 1e-4 or at the 1/255 gate.
+
 The last lines are a {"kernels": [...]} JSON line (the launches of phase
-12's hand run), the card's name and power limit from nvidia-smi, and
-{"ok": true, "device": {...}}.
+13's CLI runs, summed over their ranks), the card's name and power limit
+from nvidia-smi, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -173,7 +201,9 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -211,13 +241,17 @@ from manus_tpu_torch.models.gaussians import (
 from manus_tpu_torch.ops import conv as conv_mod
 from manus_tpu_torch.ops import outliers
 from manus_tpu_torch.ops.contacts import CONTACT_THRESHOLD, contact_map
+from manus_tpu_torch.ops.rasterizer import api as api_mod
 from manus_tpu_torch.ops.rasterizer import composite
 from manus_tpu_torch.ops.rasterizer.api import (
     RasterConfig,
     calculate_colors_from_sh,
     render_gaussians,
 )
-from manus_tpu_torch.ops.rasterizer.binning import bin_gaussians
+from manus_tpu_torch.ops.rasterizer.binning import (
+    bin_gaussians,
+    tile_owner_tables,
+)
 from manus_tpu_torch.ops.rasterizer.payload import NUM_LIVE, build_payload
 from manus_tpu_torch.ops.rasterizer.projection import TILE, project_gaussians
 from manus_tpu_torch.ops.skinning import (
@@ -225,6 +259,15 @@ from manus_tpu_torch.ops.skinning import (
     skin_gaussians,
 )
 from manus_tpu_torch import main as cli
+from manus_tpu_torch.parallel import collectives
+from manus_tpu_torch.parallel.distributed import initialize_distributed
+from manus_tpu_torch.parallel.mesh import (
+    check_replicated,
+    make_mesh,
+    replicate_state,
+    shard_batch,
+    state_digest,
+)
 from manus_tpu_torch.preprocess import ik as ik_mod
 from manus_tpu_torch.preprocess import pipeline as pipeline_mod
 from manus_tpu_torch.preprocess.novel_pose import generate_flexion_sequence
@@ -566,6 +609,17 @@ def build_scene(dev):
     return hand_scene(dev, CAPACITY)[:3]
 
 
+def scene_cameras(width, height, dev):
+    """hand_scene's cameras at width x height: hemisphere cameras about
+    procedural_skeleton(8)'s rest pose, far enough to see all of it."""
+    skel = procedural_skeleton(8)
+    center = skel["rest_heads"].mean(axis=0)
+    span = np.linalg.norm(skel["rest_tails"] - skel["rest_heads"], axis=1).sum()
+    return hemisphere_cameras(max(VIEWS, 4), width, height,
+                              dist=max(1.0, 2.0 * span / 4), center=center,
+                              device=dev)
+
+
 def hand_scene(dev, capacity, voxel_res=0):
     """bench.py build_workload with the port: capacity gaussians on
     procedural_skeleton(8) at WIDTH x HEIGHT, the gt rendered from the
@@ -612,11 +666,7 @@ def hand_scene(dev, capacity, voxel_res=0):
     model = init_gaussian_model(pts, cols, capacity, skin_weights=skin,
                                 device=dev)
 
-    center = skel["rest_heads"].mean(axis=0)
-    span = np.linalg.norm(skel["rest_tails"] - skel["rest_heads"], axis=1).sum()
-    cams = stack_cameras(hemisphere_cameras(
-        max(VIEWS, 4), WIDTH, HEIGHT, dist=max(1.0, 2.0 * span / 4),
-        center=center, device=dev))
+    cams = stack_cameras(scene_cameras(WIDTH, HEIGHT, dev))
     frame = 3 % skel["pose_transforms"].shape[0]
     bone_tf = bone_deformation_transforms(
         torch.tensor(skel["pose_transforms"][frame], device=dev),
@@ -739,42 +789,84 @@ def composite_graph_ms(pay, bins, dev, reps=20):
                 deepest_tile=int(cnts.max()))
 
 
-def composite_cold_ms(pay, bins, dev, reps=20):
+def composite_cold_ms(pay, bins, dev, reps=20, width=WIDTH, height=HEIGHT,
+                      tile_ids=None):
     """Device ms per launch of the composite forward and backward from
     CUDA-graph replays rotating over copies of the payload, the
     cotangents and the forward's saved state, whose bytes exceed
-    COLD_BYTES: every launch reads them from HBM, as the step's do."""
-    ntx, nty = WIDTH // TILE, HEIGHT // TILE
+    COLD_BYTES: every launch reads them from HBM, as the step's do. With
+    tile_ids, over those slots of the width x height grid."""
+    ntx, nty = width // TILE, height // TILE
     offs, cnts = bins.tile_offsets, bins.tile_counts
-    n_px = ntx * nty * 256
+    t = offs.shape[0]
+    n_px = t * 256
     gen = torch.Generator(device=dev).manual_seed(0)
     copies = []
     for _ in range(int(COLD_BYTES // (4 * (pay.numel() + 4 * n_px))) + 1):
         p = pay.clone()
-        copies.append((p, torch.rand(ntx * nty, 3, 256, device=dev,
-                                     generator=gen),
-                       torch.rand(ntx * nty, 256, device=dev, generator=gen),
-                       composite.composite_fwd_cuda(p, offs, cnts, ntx,
-                                                    nty)[1:]))
+        copies.append((p, torch.rand(t, 3, 256, device=dev, generator=gen),
+                       torch.rand(t, 256, device=dev, generator=gen),
+                       composite.composite_fwd_cuda(p, offs, cnts, ntx, nty,
+                                                    tile_ids)[1:]))
     fwd_ms = rotated_graph_ms(lambda p, *_: composite.composite_fwd_cuda(
-        p, offs, cnts, ntx, nty), copies, reps)
+        p, offs, cnts, ntx, nty, tile_ids), copies, reps)
     bwd_ms = rotated_graph_ms(
         lambda p, d_rgb, d_tf, saved: composite.composite_bwd_cuda(
-            p, offs, cnts, ntx, nty, d_rgb, d_tf, *saved), copies, reps)
+            p, offs, cnts, ntx, nty, d_rgb, d_tf, *saved, tile_ids=tile_ids),
+        copies, reps)
     return fwd_ms, bwd_ms, len(copies)
 
 
-def composite_check(pay, bins, dev, tag, width=WIDTH, height=HEIGHT):
+def image_to_tiles(img, ntx, nty):
+    """[H, W, 3] (tile-aligned) -> [T, 3, 256], tiles_to_image's inverse."""
+    return img.reshape(nty, TILE, ntx, TILE, 3).permute(0, 2, 4, 1, 3) \
+        .reshape(ntx * nty, 3, TILE * TILE)
+
+
+# Queue C1: a pixel left out of the backward comparison ends its walk a
+# pair apart in the two versions. Where the stop rule decided it, the walk
+# that took the pair ends at log T within rounding (STOP_ROUNDING) of
+# log(1e-4); where the 1/255 gate did, the two log T differ by
+# |log(1 - 1/255)| within rounding. Anywhere else is a fault.
+STOP_ROUNDING = 2e-4
+GATE_LOG = -math.log1p(-1.0 / 255.0)
+
+
+def walk_flips(tag, tf_k, tf_p, differ):
+    """Print each left-out pixel's log T_final in both walks and where it
+    sits (Queue C1). Returns the count of those that sit elsewhere."""
+    slot, pix = torch.nonzero(differ, as_tuple=True)
+    lk, lp = torch.log(tf_k[slot, pix]), torch.log(tf_p[slot, pix])
+    at_stop = (torch.minimum(lk, lp) - composite.LOG_T_EPS).abs() \
+        <= STOP_ROUNDING
+    at_gate = ((lk - lp).abs() - GATE_LOG).abs() <= STOP_ROUNDING
+    where = ["stop" if a else "gate" if g else "ELSEWHERE"
+             for a, g in zip(at_stop.tolist(), at_gate.tolist())]
+    print(f"C1 {tag}: {slot.numel()} pixels left out of the backward "
+          f"comparison: {where.count('stop')} at log 1e-4, "
+          f"{where.count('gate')} at the 1/255 gate, "
+          f"{where.count('ELSEWHERE')} elsewhere")
+    for i in range(slot.numel()):
+        print(f"C1 {tag}: slot {int(slot[i])} pixel {int(pix[i])}: log "
+              f"T_final kernel {lk[i].item():.7f} plain {lp[i].item():.7f} "
+              f"({where[i]})")
+    return where.count("ELSEWHERE")
+
+
+def composite_check(pay, bins, dev, tag, width=WIDTH, height=HEIGHT,
+                    tile_ids=None):
     """Both composite kernels against their plain version on one payload
-    of a width x height image, and two launches of each against each other
-    (equal bits). Returns the max abs errors and what the forward gave."""
+    of a width x height image (with tile_ids, on those tile slots), and
+    two launches of each against each other (equal bits). Returns the max
+    abs errors and what the forward gave."""
     ntx, nty = width // TILE, height // TILE
     offs, cnts = bins.tile_offsets, bins.tile_counts
-    n_tiles = ntx * nty
-    fwd = composite.composite_fwd_cuda(pay, offs, cnts, ntx, nty)
+    n_tiles = offs.shape[0]
+    fwd = composite.composite_fwd_cuda(pay, offs, cnts, ntx, nty, tile_ids)
     rgb_k, tf_k, log_t, n_walk, state = fwd
     with torch.no_grad():
-        rgb_p, tf_p = composite.composite_tiles_torch(pay, offs, cnts, ntx, nty)
+        rgb_p, tf_p = composite.composite_tiles_torch(pay, offs, cnts, ntx, nty,
+                                                      tile_ids=tile_ids)
     err_px = torch.maximum((rgb_k - rgb_p).abs().amax(1), (tf_k - tf_p).abs())
     fwd_err = err_px.max().item()
     flips = int((err_px > FWD_ATOL).sum())
@@ -788,7 +880,7 @@ def composite_check(pay, bins, dev, tag, width=WIDTH, height=HEIGHT):
     check(flips <= FLIP_SHARE * n_tiles * 256 and fwd_err <= FLIP_ATOL,
           f"forward kernel disagrees ({tag}): max err {fwd_err}, {flips} pixels")
     check((tf_k < 0.5).any().item(), f"the {tag} scene covers no pixel")
-    again = composite.composite_fwd_cuda(pay, offs, cnts, ntx, nty)
+    again = composite.composite_fwd_cuda(pay, offs, cnts, ntx, nty, tile_ids)
     check(all(torch.equal(a, b) for a, b in zip(fwd[:4], again[:4])),
           f"two launches of the forward differ ({tag})")
 
@@ -798,27 +890,27 @@ def composite_check(pay, bins, dev, tag, width=WIDTH, height=HEIGHT):
     print(f"composite {tag}: {n_differ} pixels whose walks differ by a pair "
           f"(log T_final apart by more than {WALK_LOG_TOL}) get no cotangent "
           f"in the backward comparison")
+    walk_flips(tag, tf_k, tf_p, differ)
     check(n_differ <= FLIP_SHARE * n_tiles * 256,
           f"{n_differ} pixels walk other pairs in the kernel ({tag})")
-    same = composite.tiles_to_image(
-        torch.zeros(n_tiles, 3, 256, device=dev), (~differ).float(),
-        torch.zeros(3, device=dev), ntx, nty, width, height)[1]
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    r_img = (torch.rand(height, width, 3, device=dev, generator=gen) - 0.5) \
-        * same[..., None]
+    r_img = torch.rand(height, width, 3, device=dev, generator=gen) - 0.5
+    ids = torch.arange(ntx * nty, device=dev) if tile_ids is None \
+        else tile_ids.long()
+    # the image cotangent on the slots' pixels, none where the walks differ
+    r_tiles = image_to_tiles(r_img, ntx, nty)[ids] * (~differ)[:, None, :]
     bg = torch.tensor([0.3, 0.2, 0.1], device=dev)
 
     def d_payload(fn, counts):
         x = pay.detach().requires_grad_(True)
         rgb, tfin = fn(x, counts)
-        img, _ = composite.tiles_to_image(rgb, tfin, bg, ntx, nty, width,
-                                          height)
-        (g,) = torch.autograd.grad((img * r_img).sum(), [x])
+        out = rgb + tfin[:, None, :] * bg[None, :, None]
+        (g,) = torch.autograd.grad((out * r_tiles).sum(), [x])
         return g
 
     dk = d_payload(lambda x, c: composite.CompositeFn.apply(
-        x, offs, c, ntx, nty), cnts)
+        x, offs, c, ntx, nty, tile_ids), cnts)
     # the plain backward's autograd graph grows with the pairs, so it runs
     # over groups of whole tiles, a group those whose segments start in
     # one span of PLAIN_PAIRS pairs: the segments are disjoint, a tile
@@ -826,7 +918,7 @@ def composite_check(pay, bins, dev, tag, width=WIDTH, height=HEIGHT):
     # passes' gradients add up to the whole one exactly
     group = (torch.cumsum(cnts, 0) - cnts) // PLAIN_PAIRS
     dp = sum(d_payload(lambda x, c: composite.composite_tiles_torch(
-        x, offs, c, ntx, nty), torch.where(group == g, cnts, 0))
+        x, offs, c, ntx, nty, tile_ids=tile_ids), torch.where(group == g, cnts, 0))
         for g in group[cnts > 0].unique().tolist())
     bwd_err = (dk - dp).abs().max().item()
     norm = ((dk - dp).abs().amax(1) / dp.abs().amax(1).clamp(min=1e-30))[:NUM_LIVE]
@@ -837,7 +929,8 @@ def composite_check(pay, bins, dev, tag, width=WIDTH, height=HEIGHT):
     d_rgb = torch.rand(n_tiles, 3, 256, device=dev, generator=gen)
     d_tf = torch.rand(n_tiles, 256, device=dev, generator=gen)
     d1, d2 = (composite.composite_bwd_cuda(
-        pay, offs, cnts, ntx, nty, d_rgb, d_tf, *fwd[1:]) for _ in range(2))
+        pay, offs, cnts, ntx, nty, d_rgb, d_tf, *fwd[1:], tile_ids=tile_ids)
+        for _ in range(2))
     check(torch.equal(d1, d2) and bool(d1.abs().max() > 0),
           f"two launches of the backward differ ({tag})")
     print(f"composite {tag}: two launches of each kernel gave equal bits")
@@ -864,7 +957,6 @@ def kernel_phase(pay, bins, spread_pay, spread_bins, dev):
                                                             "bench")
 
     # times at the bench shape
-    walked = int(n_walk.sum())
     walk_max = n_walk.amax(1).long()
     pairs = int(walk_max.sum())
     times = composite_graph_ms(pay, bins, dev)
@@ -874,16 +966,7 @@ def kernel_phase(pay, bins, spread_pay, spread_bins, dev):
             pay, offs, cnts, ntx, nty), 3)
     bwd_plain_ms = plain_backward_ms(pay, offs, cnts, ntx, nty, d_rgb, d_tf)
 
-    px_out = n_tiles * 256
-    fwd_bytes = 36 * pairs + 8 * n_tiles + 24 * px_out
-    bwd_bytes = 72 * pairs + 4 * n_tiles + 28 * px_out
-
-    def bound(nbytes, flops):
-        t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-        return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
-
-    fwd_bound, fwd_by = bound(fwd_bytes, FWD_FLOP_PER_PAIR * walked)
-    bwd_bound, bwd_by = bound(bwd_bytes, BWD_FLOP_PER_PAIR * walked)
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = composite_bounds(n_walk)
     print(f"times (ms, bench shape, CUDA-graph replays over {n_copies} "
           f"copies past {COLD_BYTES:.0e} bytes, HBM-cold; replays of one "
           f"input in brackets): fwd kernel {fwd_ms:.4f} "
@@ -901,6 +984,28 @@ def kernel_phase(pay, bins, spread_pay, spread_bins, dev):
                               plain_ms=bwd_plain_ms, bound_ms=bwd_bound,
                               bound_by=bwd_by),
     }
+
+
+def composite_bounds(n_walk):
+    """((ms, "bytes" or "operations") of the forward, of the backward):
+    the least time the card could take for the work of this payload's
+    walks (n_walk: [T, 256] pairs each pixel walked). The pairs a tile
+    walks are read once (36 bytes forward, 72 with the cotangent rows
+    backward), the offsets and counts (and ids) once, the outputs written
+    once; FWD_FLOP_PER_PAIR and BWD_FLOP_PER_PAIR a walked pixel-pair."""
+    n_tiles = n_walk.shape[0]
+    walked = int(n_walk.sum())
+    pairs = int(n_walk.amax(1).long().sum())
+    px_out = n_tiles * 256
+
+    def bound(nbytes, flops):
+        t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+        return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+    return (bound(36 * pairs + 8 * n_tiles + 24 * px_out,
+                  FWD_FLOP_PER_PAIR * walked),
+            bound(72 * pairs + 4 * n_tiles + 28 * px_out,
+                  BWD_FLOP_PER_PAIR * walked))
 
 
 def plain_backward_ms(pay, offs, cnts, ntx, nty, d_rgb, d_tf, reps=3):
@@ -2891,6 +2996,420 @@ def _brics_runs(dev, dyn, static):
     return launches
 
 
+# Phase 13 (parallel): the sharded training path of parallel/.
+# (a) The tile-id form of the composite kernels: PAR_G owners of the bench
+# scene's view at each of PAR_SHAPES. (b) The training CLI as ranks that
+# share the card: PAR_RUNS, each for PAR_STEPS steps with LPIPS on from
+# step 0, on the trainer phase's HAND_GAUSSIAN default at full width. (c)
+# NCCL at world size 1, and across the cards where there are several.
+PAR_G, PAR_SHAPES = 4, ((WIDTH, HEIGHT), (1280, 720))
+PAR_HOT = 8  # hybrid's hot_split_tiles, the config's default
+PAR_DIR = os.path.join("chiprun_out", "parallel")
+PAR_STEPS = 12
+# (name, data_axis, gauss_axis, tile_shard_mode, batch_views)
+PAR_RUNS = [("gauss2_owner", 1, 2, "owner", 1),
+            ("data2_gauss2_pairslice", 2, 2, "pairslice", 2)]
+PAR_ARGS = [
+    "--config-name", "HAND_GAUSSIAN", f"capacity={TRAINER_CAPACITY}",
+    "skin_init=mano_init_voxel", "dataset.grid_res=128",
+    "dataset.width=512", "dataset.height=512", "dataset.num_cameras=8",
+    "dataset.num_frames=4", f"dataset.sample_size={TRAINER_SAMPLE_SIZE}",
+    f"trainer.max_steps={PAR_STEPS}", "trainer.val_every=0",
+    "trainer.checkpoint_every=0", "trainer.log_every=1",
+    "model.start_lpips_iter=0", "loss.lpips_random_in_loss=true",
+    "loss.lpips_gt_cache_mb=8192",
+]
+# Hybrid's hot tiles are composed of the ranks' depth ranges with the
+# 1e-4 stop applied per part (api._over_compose), as in JAX: a part that
+# starts above T = 1e-4 is added whole, so a pixel may take pairs beyond
+# the one-walk stop, each weighted by T < 1e-4 (colours <= ~1), and its
+# T_final may end lower by up to 1e-4. Besides that, FWD_ATOL's rounding
+# and, on FLIP_SHARE of the pixels, FLIP_ATOL's walk-end flips.
+HYBRID_ATOL = 1e-4 + FWD_ATOL
+# The sharded step against the single-process step on one batch: the
+# same float32 function, with the view and gaussian sums split over the
+# ranks and the payload's gradient summed with atomics (index_add_): the
+# loss within rtol 1e-5; each parameter leaf within 1e-5 of its largest
+# value, except slots whose gradient is below 1e-4 of the leaf's largest
+# (Adam moves a slot by its learning rate whatever the gradient's size,
+# so rounding decides their direction), at most 1% of them.
+STEP_RTOL, PARAM_NORM_TOL, UNRESOLVED, UNRESOLVED_SHARE = 1e-5, 1e-5, 1e-4, 0.01
+
+
+def par_bins(cfg, proj, ntx, nty, **kw):
+    r = cfg.raster
+    return bin_gaussians(proj, ntx, nty, r.tg_max, r.lane_align,
+                         r.pair_budget_factor, r.max_pairs_per_tile,
+                         r.multi_frac, **kw)
+
+
+def hot_slots(bins, col, n, k):
+    """Column col's depth ranges of the k deepest tiles (api._composite's
+    hybrid rule): (offsets, counts, tile ids)."""
+    hot = torch.argsort(-bins.tile_counts, stable=True)[:k]
+    cnt, off = bins.tile_counts[hot], bins.tile_offsets[hot]
+    share = -(-cnt // n)
+    lo = off + torch.minimum(col * share, cnt)
+    hi = off + torch.minimum((col + 1) * share, cnt)
+    return lo.contiguous(), (hi - lo).contiguous(), hot.to(torch.int32)
+
+
+def tile_id_kernels(cfg, model, batch, dev):
+    """Phase 13 (a). Returns {shape: per-column numbers} for PERF.md."""
+    out = {}
+    for w, h in PAR_SHAPES:
+        ntx, nty = w // TILE, h // TILE
+        tag = f"{w}x{h}"
+        cam = scene_cameras(w, h, dev)[0]
+        p = model.params
+        with torch.no_grad():
+            posed, cov, tf = forward_gaussians(
+                p, model.active, model.skin_weights, batch["bone_tf"],
+                cfg.model)
+            colors = calculate_colors_from_sh(posed, get_features(p), p.xyz,
+                                              cam, 3, tf)
+            proj = project_gaussians(posed, cov, cam, active=model.active)
+            opac = get_opacity(p).reshape(-1)
+            full = par_bins(cfg, proj, ntx, nty)
+            pay = build_payload(proj, colors, opac, full)
+        fwd = composite.composite_fwd_cuda(pay, full.tile_offsets,
+                                           full.tile_counts, ntx, nty)
+        rgb_f, t_f = fwd[:2]
+        full_ms = composite_cold_ms(pay, full, dev, width=w, height=h)[:2]
+        (fb, _), (bb, _) = composite_bounds(fwd[3])
+        _, _, owned, perm = tile_owner_tables(ntx, nty, PAR_G)
+        perm = torch.as_tensor(perm, device=dev).long()
+        cols = []
+        for c in range(PAR_G):
+            # the column as the sharded render bins it: its dealt tiles
+            ids = torch.as_tensor(owned[c], device=dev)
+            with torch.no_grad():
+                b = par_bins(cfg, proj, ntx, nty, owner=c, num_owners=PAR_G)
+                p_c = build_payload(proj, colors, opac, b)
+            fe, be, n_walk, _, _ = composite_check(
+                p_c, b, dev, f"{tag} owner {c}/{PAR_G}", w, h, tile_ids=ids)
+            ms = composite_cold_ms(p_c, b, dev, width=w, height=h,
+                                   tile_ids=ids)[:2]
+            (fbc, _), (bbc, _) = composite_bounds(n_walk)
+            cols.append(dict(pairs=int(b.tile_counts.sum()),
+                             fwd_ms=ms[0], bwd_ms=ms[1], fwd_bound_ms=fbc,
+                             bwd_bound_ms=bbc, fwd_err=fe, bwd_err=be))
+        for c, r in enumerate(cols):
+            print(f"tile ids {tag} owner {c}/{PAR_G}: {r['pairs']} pairs, "
+                  f"HBM-cold fwd {r['fwd_ms']:.4f} ms (bound "
+                  f"{r['fwd_bound_ms']:.4f}) bwd {r['bwd_ms']:.4f} ms "
+                  f"(bound {r['bwd_bound_ms']:.4f})")
+        print(f"tile ids {tag}: the full grid, {int(full.tile_counts.sum())} "
+              f"pairs in {ntx * nty} tiles: HBM-cold fwd {full_ms[0]:.4f} ms "
+              f"(bound {fb:.4f}) bwd {full_ms[1]:.4f} ms (bound {bb:.4f}); "
+              f"slowest column fwd {max(r['fwd_ms'] for r in cols):.4f} bwd "
+              f"{max(r['bwd_ms'] for r in cols):.4f}")
+
+        # the full binning's segments dealt to the owners: gathered and put
+        # back in grid order, the full-grid launch's rows bit for bit
+        parts = []
+        for c in range(PAR_G):
+            ids = torch.as_tensor(owned[c], device=dev)
+            parts.append(composite.composite_fwd_cuda(
+                pay, full.tile_offsets[ids.long()].contiguous(),
+                full.tile_counts[ids.long()].contiguous(), ntx, nty, ids)[:2])
+        rgb_o = torch.cat([x[0] for x in parts])[perm]
+        t_o = torch.cat([x[1] for x in parts])[perm]
+        same = torch.equal(rgb_o, rgb_f) and torch.equal(t_o, t_f)
+        print(f"tile ids {tag}: the {PAR_G} owners' tiles gathered and "
+              f"un-permuted equal the full-grid kernel's rows: {same}")
+        check(same, f"{tag}: the owners' gathered tiles differ from the grid's")
+
+        # hybrid: each column's depth ranges of the hot tiles, composed
+        hot_rgb, hot_t = [], []
+        for c in range(PAR_G):
+            offs, cnts, hot = hot_slots(full, c, PAR_G, PAR_HOT)
+            composite_check(pay, full._replace(tile_offsets=offs,
+                                               tile_counts=cnts), dev,
+                            f"{tag} hybrid hot slots {c}/{PAR_G}", w, h,
+                            tile_ids=hot)
+            r, t = composite.composite_fwd_cuda(pay, offs, cnts, ntx, nty,
+                                                hot)[:2]
+            hot_rgb.append(r)
+            hot_t.append(t)
+        rgb_h, t_h = api_mod._over_compose(torch.stack(hot_rgb),
+                                           torch.stack(hot_t))
+        hot = hot.long()
+        err = torch.maximum((rgb_h - rgb_f[hot]).abs().amax(1),
+                            (t_h - t_f[hot]).abs())
+        n_off = int((err > HYBRID_ATOL).sum())
+        print(f"tile ids {tag}: the {PAR_HOT} hot tiles ({[int(full.tile_counts[i]) for i in hot]} pairs) composed from "
+              f"{PAR_G} depth ranges against the full grid: max abs err "
+              f"{err.max().item():.3e}, pixels beyond {HYBRID_ATOL:.0e}: "
+              f"{n_off}")
+        check(n_off <= FLIP_SHARE * err.numel()
+              and err.max().item() <= FLIP_ATOL,
+              f"{tag}: hybrid's composed hot tiles differ from the grid's")
+        out[tag] = dict(columns=cols, full_fwd_ms=full_ms[0],
+                        full_bwd_ms=full_ms[1], full_fwd_bound_ms=fb,
+                        full_bwd_bound_ms=bb)
+    return out
+
+
+def _param_errors(leaves):
+    """Over (got, want, want's first moment) of each leaf: (the largest
+    normalised error over the resolved slots, the largest share of slots
+    off by more than PARAM_NORM_TOL)."""
+    worst, off_share = 0.0, 0.0
+    for g, w, m in leaves:
+        scale = w.abs().max().clamp(min=1e-8)
+        err = (g - w).abs() / scale
+        unresolved = m.abs() < UNRESOLVED * m.abs().max()
+        worst = max(worst, err[~unresolved].max().item()
+                    if (~unresolved).any() else 0.0)
+        off_share = max(off_share, (err > PARAM_NORM_TOL).float().mean().item())
+    return worst, off_share
+
+
+def _step_check(dev, mesh, rank):
+    """One gauss-sharded (owner) flagship step on one batch against the
+    single-process step on rank 0. Returns what rank 0 found."""
+    cfg, model, batch, grid = hand_scene(dev, FLAGSHIP_CAPACITY, VOXEL_RES)
+    state = init_train_state(model)
+    step = make_train_step(cfg, 1.0, True, grid, mesh=mesh)
+    composite.composite_fwd_cuda.tile_id_launches = 0
+    new, m = step(replicate_state(state, mesh), shard_batch(batch, mesh))
+    check_replicated(new, mesh, "states after the step")
+    n_ids = composite.composite_fwd_cuda.tile_id_launches
+    if rank != 0:
+        return {}
+    one, m1 = make_train_step(cfg, 1.0, True, grid)(state, batch)
+    worst, off = _param_errors([
+        (getattr(new.model.params, k), getattr(one.model.params, k),
+         getattr(one.opt.m, k)) for k in one.model.params._fields])
+    rel = abs(float(m["loss"]) - float(m1["loss"])) / abs(float(m1["loss"]))
+    print(f"parallel (b): one owner step over gauss 2 at {FLAGSHIP_CAPACITY} "
+          f"gaussians: loss {float(m['loss']):.7f} against the single "
+          f"process's {float(m1['loss']):.7f} (rel {rel:.2e}); params worst "
+          f"normalised err over resolved slots {worst:.2e}, slots off "
+          f"{off:.2e}; grad_accum max abs err "
+          f"{(new.stats.grad_accum - one.stats.grad_accum).abs().max().item():.2e}"
+          f"; overflow {int(m['pair_overflow'])} / {int(m1['pair_overflow'])}; "
+          f"tile-id forward launches {n_ids}")
+    check(rel <= STEP_RTOL, "parallel: the sharded step's loss differs")
+    check(worst <= PARAM_NORM_TOL and off <= UNRESOLVED_SHARE,
+          "parallel: the sharded step's parameters differ")
+    check(n_ids == 1, "parallel: the tile-id forward did not run")
+    return dict(loss=float(m["loss"]), single_loss=float(m1["loss"]),
+                param_err=worst, off_share=off)
+
+
+def _rank_main(rank, world, port, runs, step_check, out_dir):
+    """One rank of phase 13 (b), in its own process: join the world
+    (gloo: the ranks share the card), probe gloo on a CUDA tensor, the
+    step check, then each run through the CLI. Writes its findings to
+    {out_dir}/rank{rank}.json."""
+    os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    initialize_distributed(f"localhost:{port}", world, rank,
+                           device_type="cuda")
+    res = dict(rank=rank, backend=str(torch.distributed.get_backend()))
+    # what the installed torch's gloo does with a CUDA tensor itself (the
+    # port stages it through the host by the group's backend)
+    x = torch.full((4,), float(rank + 1), device=dev)
+    try:
+        torch.distributed.all_reduce(x)
+        res["gloo_cuda_all_reduce"] = f"ran: {x.tolist()} on {x.device}"
+    except Exception as e:  # the probe's answer, printed
+        res["gloo_cuda_all_reduce"] = f"refused: {str(e).splitlines()[0]}"
+    if step_check:
+        mesh = make_mesh(1, world)
+        res["step"] = _step_check(dev, mesh, rank)
+    for name, n_data, n_gauss, mode, views in runs:
+        argv = [*PAR_ARGS, f"trainer.data_axis={n_data}",
+                f"trainer.gauss_axis={n_gauss}",
+                f"raster.tile_shard_mode={mode}",
+                f"trainer.batch_views={views}", "trainer.distributed=true",
+                f"trainer.coordinator=localhost:{port}",
+                f"trainer.num_processes={world}",
+                f"trainer.process_id={rank}",
+                f"trainer.output_dir={os.path.join(out_dir, name)}"]
+        collectives.STATS.update(calls=0, host_staged=0)
+        composite.composite_fwd_cuda.tile_id_launches = 0
+        composite.composite_bwd_cuda.tile_id_launches = 0
+        tr, launches, lines, peak, wall = _run_cli(argv)
+        losses = [float(m.group(1)) for m in
+                  (re.search(r"step \d+: loss=([0-9.]+)", ln) for ln in lines)
+                  if m]
+        res[name] = dict(
+            launches=launches, losses=losses, digest=state_digest(tr.state),
+            tile_id_launches=[composite.composite_fwd_cuda.tile_id_launches,
+                              composite.composite_bwd_cuda.tile_id_launches],
+            collectives=dict(collectives.STATS), peak_mib=peak, wall_s=wall,
+            step_ms=statistics.median(x * 1e3 for x in
+                                      tr.timings["step_s"][WARMUP:]),
+            views=[ln for ln in lines if "[mesh]" in ln])
+        shutil.rmtree(os.path.join(out_dir, name, "manus_tpu", "synthetic",
+                                   "test", "checkpoints"), ignore_errors=True)
+        del tr
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def shared_card_ranks(world, runs, step_check):
+    """Phase 13 (b) for one world: `world` ranks on this card, each its own
+    process. Returns their findings, rank by rank."""
+    out_dir = os.path.join(PAR_DIR, f"world{world}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.multiprocessing.spawn(_rank_main, args=(world, port, runs,
+                                                  step_check, out_dir),
+                                nprocs=world, join=True)
+    res = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
+def collective_check(group, dev, rank, world, tag):
+    """Each collective of parallel/collectives.py on CUDA tensors over
+    `group`, against what it must give; with the gathers' backward (the
+    sum-scatter). Returns the calls staged through the host."""
+    staged = collectives.STATS["host_staged"]
+    x = (torch.arange(6.0, device=dev).reshape(3, 2) + 10 * rank) \
+        .requires_grad_(True)
+    want = torch.cat([torch.arange(6.0, device=dev).reshape(3, 2) + 10 * r
+                      for r in range(world)])
+    y = collectives.all_gather_tiled(x, group)
+    w = torch.arange(want.numel(), device=dev, dtype=torch.float32) \
+        .reshape(want.shape)
+    (g,) = torch.autograd.grad((y * w).sum(), [x])
+    ok = torch.equal(y, want) and torch.equal(g, world * w[3 * rank:3 * rank + 3])
+    s = collectives.all_gather_stack(x.detach(), group)
+    ok &= torch.equal(s, want.reshape(world, 3, 2))
+    mean = collectives.all_reduce_mean(x.detach(), group)
+    ok &= torch.allclose(mean, want.reshape(world, 3, 2).mean(0))
+    total = collectives.all_reduce_sum(x.detach(), group)
+    ok &= torch.equal(total, want.reshape(world, 3, 2).sum(0))
+    b = collectives.broadcast(x.detach(), 0, group)
+    ok &= torch.equal(b, want[:3])
+    staged = collectives.STATS["host_staged"] - staged
+    print(f"parallel (c) {tag} rank {rank}: all_gather (tiled, its "
+          f"sum-scatter backward; stacked), mean, sum, broadcast over "
+          f"{world} rank(s): {'right' if ok else 'WRONG'}; host-staged "
+          f"calls {staged}")
+    return bool(ok), staged
+
+
+def _nccl_rank(rank, world, port):
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", world_size=world,
+        rank=rank)
+    ok, staged = collective_check(torch.distributed.group.WORLD, dev, rank,
+                                  world, f"NCCL across {world} cards")
+    torch.distributed.destroy_process_group()
+    if not ok or staged:
+        raise RuntimeError("NCCL collectives across cards are wrong")
+
+
+def nccl_phase(dev):
+    """Phase 13 (c): the collectives over NCCL at world size 1 in this
+    process, and across the cards when there are several. Returns what
+    ran."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    ok, staged = collective_check(torch.distributed.group.WORLD, dev, 0, 1,
+                                  "NCCL world size 1")
+    backend = str(torch.distributed.get_backend())
+    torch.distributed.destroy_process_group()
+    check(ok and staged == 0 and backend == "nccl",
+          "parallel: NCCL collectives at world size 1")
+    ran = ["NCCL at world size 1"]
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        torch.multiprocessing.spawn(_nccl_rank, args=(cards, port),
+                                    nprocs=cards, join=True)
+        ran.append(f"NCCL across {cards} cards")
+    else:
+        print("parallel (c): NCCL across cards not run: this machine has "
+              "one card")
+    return ran
+
+
+def parallel_phase(cfg, model, batch, dev):
+    """Phase 13. Returns the kernels' launches over (b)'s CLI runs, summed
+    over their ranks, and (a)'s numbers."""
+    t0 = time.perf_counter()
+    numbers = tile_id_kernels(cfg, model, batch, dev)
+    t_a = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs = [shared_card_ranks(2, PAR_RUNS[:1], step_check=True),
+            shared_card_ranks(4, PAR_RUNS[1:], step_check=False)]
+    t_b = time.perf_counter() - t0
+    launches = {name: 0 for name in COUNTERS}
+    for ranks, (name, n_data, n_gauss, mode, views) in zip(runs, PAR_RUNS):
+        world = n_data * n_gauss
+        r0 = ranks[0]
+        print(f"parallel (b) {name}: {world} ranks on one card, backend "
+              f"{r0['backend']} (NCCL refuses two ranks on one card); "
+              f"gloo's own all_reduce of a CUDA tensor: "
+              f"{r0['gloo_cuda_all_reduce']}")
+        for r in ranks:
+            run = r[name]
+            print(f"parallel (b) {name} rank {r['rank']}: {run['views']}; "
+                  f"losses {[round(x, 6) for x in run['losses']]}; median "
+                  f"{run['step_ms']:.3f} ms/step; peak {run['peak_mib']:.1f} "
+                  f"MiB; collectives {run['collectives']} (host-staged: "
+                  f"the CUDA tensors over gloo; the others are the state "
+                  f"checks' digests, on the host); launches "
+                  f"{run['launches']}, tile-id form "
+                  f"fwd/bwd {run['tile_id_launches']}")
+            for k, n in run["launches"].items():
+                launches[k] += n
+        first = r0[name]
+        check(all(r[name]["losses"] == first["losses"]
+                  and r[name]["digest"] == first["digest"] for r in ranks),
+              f"parallel {name}: the ranks disagree")
+        loss = first["losses"]
+        check(len(loss) == PAR_STEPS and all(map(math.isfinite, loss)),
+              f"parallel {name}: {len(loss)} losses")
+        k = PAR_STEPS // 3
+        check(sum(loss[-k:]) < sum(loss[:k]),
+              f"parallel {name}: the loss did not fall")
+        local_views = views // n_data
+        for r in ranks:
+            fwd_ids, bwd_ids = r[name]["tile_id_launches"]
+            want = PAR_STEPS * local_views if mode == "owner" else 0
+            check(fwd_ids == want and bwd_ids == want,
+                  f"parallel {name}: tile-id launches {fwd_ids}/{bwd_ids}, "
+                  f"not {want}")
+            check(r[name]["launches"]["composite_bwd"] == PAR_STEPS
+                  * local_views, f"parallel {name}: backward launches")
+            # every collective on a CUDA tensor; the state checks' digests
+            # are gathered from the host
+            check(r[name]["collectives"]["host_staged"] > 0,
+                  f"parallel {name}: no collective staged through gloo")
+    t0 = time.perf_counter()
+    ran = nccl_phase(dev)
+    print(f"parallel: ran (a) the tile-id kernels at {list(numbers)}, "
+          f"(b) {[n for n, *_ in PAR_RUNS]} as ranks sharing one card over "
+          f"gloo with host-staged collectives, (c) {ran}; "
+          f"{t_a:.1f} s + {t_b:.1f} s + {time.perf_counter() - t0:.1f} s")
+    print(f"parallel numbers: {json.dumps(numbers)}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2977,10 +3496,14 @@ def main() -> int:
                       ignore_errors=True)
     print(f"composite phase launches over its {len(COMPOSITE_RUNS)} "
           f"COMPOSITE runs: {comp_launches}")
-    # this slice's path: HAND_GAUSSIAN on a BRICS capture at 1280x720;
-    # the kernels line carries its counts (the earlier paths' are on
-    # their own lines above)
-    launches.update(brics_phase(dev))
+    # the BRICS path: HAND_GAUSSIAN on a capture at 1280x720, counted on a
+    # line of its own
+    print(f"brics phase launches: {brics_phase(dev)}")
+    # the sharded path: the trainer's ranks through the CLI; the
+    # kernels line carries its counts (the earlier paths' are on their
+    # own lines above)
+    torch.cuda.empty_cache()
+    launches.update(parallel_phase(cfg, model, batch, dev))
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name],

@@ -9,8 +9,11 @@
 // Layout. payload is field-major [16, P] float32: rows mean x, mean y,
 // conic a, b, c, opacity, r, g, b, then padding (payload.py). Tile t owns
 // the pair columns [offsets[t], offsets[t] + counts[t]), depth-ordered.
-// A tile is 16x16 pixels; pixel i of tile t has its centre at
-// (tx*16 + i%16, ty*16 + i/16), tx = t % ntx, ty = t / ntx.
+// The T slots need not cover the grid: slot t composites the tile of
+// global id g = tile_ids[t] (tile_ids null: g = t, the full grid), as the
+// JAX kernels' scalar-prefetched tile ids do; the outputs keep the slot
+// order. A tile is 16x16 pixels; pixel i of slot t has its centre at
+// (tx*16 + i%16, ty*16 + i/16), tx = g % ntx, ty = g / ntx.
 //
 // Numerics (the JAX kernel's, pair by pair):
 //   power = -0.5 (a dx^2 + c dy^2) - b dx dy,  skipped where power > 0
@@ -124,6 +127,15 @@ __device__ __forceinline__ void pixel_of_thread(int i, int* x, int* y) {
   const int w = i >> 5, l = i & 31;
   *x = ((w & 1) << 3) | (l & 7);
   *y = ((w >> 1) << 2) | (l >> 3);
+}
+
+// The pixel origin of slot `slot`: its global tile id's column and row.
+__device__ __forceinline__ void tile_origin(const int* __restrict__ tile_ids,
+                                            int slot, int ntx, float* x0,
+                                            float* y0) {
+  const int g = tile_ids ? tile_ids[slot] : slot;
+  *x0 = (float)((g % ntx) * kTile);
+  *y0 = (float)((g / ntx) * kTile);
 }
 
 // The warps whose pixel block a pair's footprint can reach, one bit a
@@ -388,7 +400,8 @@ __device__ __noinline__ void walk_on(
 __global__ void __launch_bounds__(kPixels) chunk_pass_kernel(
     const float* __restrict__ payload, int64_t P,
     const int* __restrict__ offsets, const int* __restrict__ counts,
-    int num_tiles, int ntx, const int* __restrict__ item_start,
+    const int* __restrict__ tile_ids, int num_tiles, int ntx,
+    const int* __restrict__ item_start,
     const int* __restrict__ item_tile, int max_items,
     float* __restrict__ lk,     // [max_items, 5, 256]: L, K rgb, last gated
     float* __restrict__ saved,  // [max_items, 4, 256]
@@ -405,8 +418,8 @@ __global__ void __launch_bounds__(kPixels) chunk_pass_kernel(
   int x, y;
   pixel_of_thread(threadIdx.x, &x, &y);
   const int pix = y * kTile + x;
-  const float x0 = (float)((it.tile % ntx) * kTile);
-  const float y0 = (float)((it.tile / ntx) * kTile);
+  float x0, y0;
+  tile_origin(tile_ids, it.tile, ntx, &x0, &y0);
   const float px = x0 + (float)x, py = y0 + (float)y;
   stage_pairs(s, payload, P, it.start + it.lo, it.n, x0, y0);
   __syncthreads();
@@ -438,7 +451,8 @@ __global__ void __launch_bounds__(kPixels) chunk_pass_kernel(
 __global__ void __launch_bounds__(kPixels) rewalk_kernel(
     const float* __restrict__ payload, int64_t P,
     const int* __restrict__ offsets, const int* __restrict__ counts,
-    int num_tiles, int ntx, const int* __restrict__ item_start,
+    const int* __restrict__ tile_ids, int num_tiles, int ntx,
+    const int* __restrict__ item_start,
     const int* __restrict__ item_tile, int max_items,
     const float* __restrict__ lk, float* __restrict__ saved, FwdOut out,
     float stop_margin) {
@@ -451,8 +465,8 @@ __global__ void __launch_bounds__(kPixels) rewalk_kernel(
   int x, y;
   pixel_of_thread(threadIdx.x, &x, &y);
   const int pix = y * kTile + x;
-  const float x0 = (float)((it.tile % ntx) * kTile);
-  const float y0 = (float)((it.tile / ntx) * kTile);
+  float x0, y0;
+  tile_origin(tile_ids, it.tile, ntx, &x0, &y0);
   const float px = x0 + (float)x, py = y0 + (float)y;
   const float limit = kLogTEps + stop_margin;
 
@@ -547,7 +561,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 __global__ void __launch_bounds__(kPixels) composite_bwd_kernel(
     const float* __restrict__ payload, int64_t P,
     const int* __restrict__ offsets, const int* __restrict__ counts,
-    int num_tiles, int ntx, const int* __restrict__ item_start,
+    const int* __restrict__ tile_ids, int num_tiles, int ntx,
+    const int* __restrict__ item_start,
     const int* __restrict__ item_tile, int max_items,
     const float* __restrict__ saved,    // [max_items, 4, 256]
     const float* __restrict__ d_rgb,    // [T, 3, 256]
@@ -568,8 +583,8 @@ __global__ void __launch_bounds__(kPixels) composite_bwd_kernel(
   int x, y;
   pixel_of_thread(threadIdx.x, &x, &y);
   const int pix = y * kTile + x;
-  const float x0 = (float)((it.tile % ntx) * kTile);
-  const float y0 = (float)((it.tile / ntx) * kTile);
+  float x0, y0;
+  tile_origin(tile_ids, it.tile, ntx, &x0, &y0);
   const float px = x0 + (float)x, py = y0 + (float)y;
   const int64_t o = (int64_t)it.tile * kPixels + pix;
 
@@ -723,36 +738,39 @@ int composite_occupancy(int* ctas) {
   return (int)cudaGetLastError();
 }
 
+// tile_ids: [num_tiles] global tile ids of the slots, or null for the
+// full grid (slot t is tile t).
 int composite_fwd(const float* payload, int64_t P, const int* offsets,
-                  const int* counts, int num_tiles, int ntx, float* rgb,
-                  float* t_final, float* log_t, int* n_walk, int* item_start,
-                  int* item_tile, int max_items, float* lk, float* saved,
-                  float stop_margin, void* stream) {
+                  const int* counts, const int* tile_ids, int num_tiles,
+                  int ntx, float* rgb, float* t_final, float* log_t,
+                  int* n_walk, int* item_start, int* item_tile, int max_items,
+                  float* lk, float* saved, float stop_margin, void* stream) {
   if (num_tiles > 0) {
     cudaStream_t st = (cudaStream_t)stream;
     const FwdOut out = {rgb, t_final, log_t, n_walk};
     plan_kernel<<<1, kPlanThreads, 0, st>>>(counts, num_tiles, max_items,
                                             item_start, item_tile);
     chunk_pass_kernel<<<max_items, kPixels, 0, st>>>(
-        payload, P, offsets, counts, num_tiles, ntx, item_start, item_tile,
-        max_items, lk, saved, out, stop_margin);
+        payload, P, offsets, counts, tile_ids, num_tiles, ntx, item_start,
+        item_tile, max_items, lk, saved, out, stop_margin);
     rewalk_kernel<<<max_items, kPixels, 0, st>>>(
-        payload, P, offsets, counts, num_tiles, ntx, item_start, item_tile,
-        max_items, lk, saved, out, stop_margin);
+        payload, P, offsets, counts, tile_ids, num_tiles, ntx, item_start,
+        item_tile, max_items, lk, saved, out, stop_margin);
   }
   return (int)cudaGetLastError();
 }
 
 int composite_bwd(const float* payload, int64_t P, const int* offsets,
-                  const int* counts, int num_tiles, int ntx,
-                  const int* item_start, const int* item_tile, int max_items,
-                  const float* saved, const float* d_rgb, const float* d_tfin,
+                  const int* counts, const int* tile_ids, int num_tiles,
+                  int ntx, const int* item_start, const int* item_tile,
+                  int max_items, const float* saved, const float* d_rgb, const float* d_tfin,
                   const float* t_final, const float* log_t, const int* n_walk,
                   float* d_payload, void* stream) {
   if (num_tiles > 0) {
     composite_bwd_kernel<<<max_items, kPixels, 0, (cudaStream_t)stream>>>(
-        payload, P, offsets, counts, num_tiles, ntx, item_start, item_tile,
-        max_items, saved, d_rgb, d_tfin, t_final, log_t, n_walk, d_payload);
+        payload, P, offsets, counts, tile_ids, num_tiles, ntx, item_start,
+        item_tile, max_items, saved, d_rgb, d_tfin, t_final, log_t, n_walk,
+        d_payload);
   }
   return (int)cudaGetLastError();
 }

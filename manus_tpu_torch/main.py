@@ -42,9 +42,23 @@ a capture on the host, touches no device, and exits with its error
 count. Data comes from the synthetic scenes or from BRICS captures
 (dataset.kind=brics_static: segmented PNGs with calib/optim_params.txt
 under dataset.root; brics_dynamic: one HDF5 file an action), read without
-h5py or OpenCV. Multi-GPU runs raise NotImplementedError with the ROADMAP
-item (Queue A) that ports them. A video the JAX CLI writes as an mp4 is
-an animated PNG here, at the same stem (utils/io.dump_video).
+h5py or OpenCV. A video the JAX CLI writes as an mp4 is an animated PNG
+here, at the same stem (utils/io.dump_video).
+
+Training over several cards: trainer.data_axis=D trainer.gauss_axis=G
+trains on a D x G mesh of ranks (parallel/), one process a rank. Alone,
+the CLI starts the D * G ranks on this node itself (rank r on card
+r % cards; gloo when ranks share a card, NCCL when each has its own);
+under torchrun (or SLURM, Open MPI), or with trainer.distributed=true
+and trainer.coordinator=host:port trainer.num_processes=W
+trainer.process_id=R, each process joins as one rank. Only rank 0
+writes the run directory.
+
+  python -m manus_tpu_torch.main --config-name HAND_GAUSSIAN \
+      trainer.gauss_axis=2 raster.tile_shard_mode=owner
+  torchrun --nproc-per-node 4 -m manus_tpu_torch.main \
+      --config-name HAND_GAUSSIAN trainer.data_axis=2 trainer.gauss_axis=2 \
+      trainer.batch_views=2
 """
 from __future__ import annotations
 
@@ -52,12 +66,15 @@ import argparse
 import copy
 import json
 import os
+import socket
+import subprocess
 import sys
 import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from manus_tpu_torch.config import (
     CONFIGS,
@@ -88,6 +105,11 @@ from manus_tpu_torch.ops.skinning import (
     bone_deformation_transforms,
     skin_gaussians,
 )
+from manus_tpu_torch.parallel.distributed import (
+    LAUNCHER_MARKERS,
+    initialize_distributed,
+    local_rank,
+)
 from manus_tpu_torch.preprocess.novel_pose import generate_flexion_sequence
 from manus_tpu_torch.train import checkpoint as ckpt_mod
 from manus_tpu_torch.train.composite import (
@@ -115,9 +137,50 @@ from manus_tpu_torch.utils.io import (
 from manus_tpu_torch.utils.losses import psnr as psnr_fn
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: ROADMAP Queue A item {item}")
+def _rank_log(msg):
+    """print, with the rank in front on every rank but the first."""
+    if dist.is_initialized() and dist.get_rank() > 0:
+        msg = f"[rank {dist.get_rank()}] {msg}"
+    print(msg, flush=True)
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def launch_local_ranks(argv, world: int) -> int:
+    """The CLI once a rank, `world` processes on this node: argv with
+    trainer.distributed=true and a localhost coordinator, LOCAL_RANK and
+    LOCAL_WORLD_SIZE set. When a rank fails the others are stopped.
+    Returns the first non-zero exit code, else 0."""
+    port = _free_port()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.pathsep.join(x for x in (root, os.environ.get("PYTHONPATH"))
+                           if x)
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                   PYTHONPATH=path)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "manus_tpu_torch.main", *argv,
+             "trainer.distributed=true",
+             f"trainer.coordinator=localhost:{port}",
+             f"trainer.num_processes={world}", f"trainer.process_id={r}"],
+            env=env))
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = [c for c in codes if c]
+            if failed or all(c == 0 for c in codes):
+                return failed[0] if failed else 0
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
 
 
 def build_dataset(cfg, split: str, device=None):
@@ -182,6 +245,7 @@ def run_train(cfg, out_dir, device=None) -> Trainer:
     cameras; dynamic: the tail frames), the init model, train, and print
     the final val PSNR. Returns the Trainer."""
     device = resolve_device(device)
+    log = _rank_log if dist.is_initialized() else print
     dataset = build_dataset(cfg, "train", device)
     if cfg.dataset.kind != "synthetic":
         val_dataset = build_dataset(cfg, "val", device)
@@ -199,13 +263,13 @@ def run_train(cfg, out_dir, device=None) -> Trainer:
         model, voxel_grid = build_hand_pieces(cfg, dataset, device)
         articulated = True
     tr = Trainer(cfg, dataset, model, articulated, voxel_grid,
-                 out_dir=out_dir, val_dataset=val_dataset)
+                 out_dir=out_dir, val_dataset=val_dataset, log=log)
     if cfg.checkpoint:
         path, n_bad = tr.load(cfg.checkpoint)
-        print(f"resumed from {path} (scrubbed {n_bad} NaN slots)")
+        log(f"resumed from {path} (scrubbed {n_bad} NaN slots)")
     tr.fit()
     psnr = tr.final_val_psnr(cfg.trainer.max_steps)
-    print(f"final val psnr: {psnr:.2f}")
+    log(f"final val psnr: {psnr:.2f}")
     return tr
 
 
@@ -562,13 +626,15 @@ def run_eval_contacts(cfg, out_dir, device=None) -> dict:
 
 
 def _run_dir(cfg) -> str:
-    """The run directory, made, with the config snapshot in it."""
+    """The run directory, made, with the config snapshot in it (by rank
+    0 alone in a distributed run)."""
     out_dir = os.path.join(
         cfg.trainer.output_dir, cfg.trainer.project,
         cfg.dataset.subject or "synthetic", cfg.trainer.exp_name,
     )
-    os.makedirs(out_dir, exist_ok=True)
-    save_config(cfg, os.path.join(out_dir, "config.json"))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        os.makedirs(out_dir, exist_ok=True)
+        save_config(cfg, os.path.join(out_dir, "config.json"))
     return out_dir
 
 
@@ -584,7 +650,10 @@ def main(argv=None):
     """Parse the CLI and run. Returns the Trainer of a training run, the
     CompositeRun of COMPOSITE, eval_contacts' scores, the RenderRun of
     render_path and test, the path make_path or make_pose wrote, or
-    validate_data's error count (the process's exit code)."""
+    validate_data's error count or, for a training run whose ranks were
+    started here (launch_local_ranks), their exit code (the process's
+    exit code)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     parser = argparse.ArgumentParser(prog="python -m manus_tpu_torch.main")
     parser.add_argument(
         "--config-name", required=True,
@@ -616,8 +685,26 @@ def main(argv=None):
         resolve_device()  # raises where there is no card
     resolve_raster_backend(cfg.raster.backend, device)  # raises early
 
-    if cfg.trainer.distributed:
-        _not_ported("trainer.distributed", "A8 (multi-GPU)")
+    mode = cfg.trainer.mode
+    world = cfg.trainer.data_axis * cfg.trainer.gauss_axis
+    sharded = (world > 1 and mode in ("train", "debug")
+               and cfg.workload != "composite")
+    if sharded and not cfg.trainer.distributed and not any(
+            m in os.environ for m in LAUNCHER_MARKERS):
+        return launch_local_ranks(argv, world)
+    if cfg.trainer.distributed or sharded:
+        # one rank of several: the process group before any device use
+        active = initialize_distributed(
+            cfg.trainer.coordinator, cfg.trainer.num_processes,
+            cfg.trainer.process_id, device_type=device.type)
+        if active and device.type == "cuda":
+            device = torch.device(
+                "cuda", local_rank() % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        _rank_log(
+            f"[distributed] active={active}" + (
+                f" rank {dist.get_rank()}/{dist.get_world_size()} backend "
+                f"{dist.get_backend()} device {device}" if active else ""))
     if cfg.trainer.mode == "debug":
         # the reference's fast_dev_run (main.py:81-82): a one-step run
         cfg.trainer.max_steps = 1
@@ -653,4 +740,6 @@ def main(argv=None):
 
 if __name__ == "__main__":
     out = main()
+    if dist.is_initialized():
+        dist.destroy_process_group()
     sys.exit(out if isinstance(out, int) else 0)

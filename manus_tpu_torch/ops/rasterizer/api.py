@@ -10,6 +10,22 @@ Backends:
   * "cuda":   binned tiles, the hand-written CUDA composite kernels;
   * "torch":  binned tiles, the kernels' plain PyTorch version;
   * "oracle": dense per-pixel compositing (small scenes, ground truth).
+
+Sharded over the gaussians (`gauss_group`, a row of the rank mesh,
+parallel/mesh.py): each rank projects its block of the gaussians and the
+projected fields are gathered, so that binning sees the whole cloud; the
+composite is then split over the group's ranks by
+RasterConfig.tile_shard_mode, as the JAX package splits it over its
+gauss mesh axis:
+  * "owner": each rank bins and composites the tiles it is dealt by
+    binning.tile_owner_tables, then the tiles are gathered and put back
+    in grid order; bit for bit the unsharded image;
+  * "pairslice": each rank composites an equal slice of the depth-ordered
+    pair array over the whole grid, and the per-tile partials are
+    composed over the ranks in order, the 1e-4 stop applied per part;
+  * "hybrid": owner's tiles, except the hot_split_tiles deepest, whose
+    pairs are split by depth range over the ranks and composed as in
+    pairslice.
 """
 from __future__ import annotations
 
@@ -19,13 +35,26 @@ import torch
 
 from manus_tpu_torch.ops.rasterizer import composite as composite_mod
 from manus_tpu_torch.ops.rasterizer import oracle as oracle_mod
-from manus_tpu_torch.ops.rasterizer.binning import bin_gaussians
+from manus_tpu_torch.ops.rasterizer.binning import (
+    bin_gaussians,
+    tile_owner_tables,
+)
 from manus_tpu_torch.ops.rasterizer.payload import build_payload
-from manus_tpu_torch.ops.rasterizer.projection import TILE, project_gaussians
+from manus_tpu_torch.ops.rasterizer.projection import (
+    TILE,
+    ProjectedGaussians,
+    project_gaussians,
+)
+from manus_tpu_torch.parallel.collectives import (
+    all_gather_stack,
+    all_gather_tiled,
+    group_rank,
+)
 from manus_tpu_torch.utils import sh as sh_mod
 from manus_tpu_torch.utils.camera import Camera
 
 BACKENDS = ("cuda", "torch", "oracle")
+TILE_SHARD_MODES = ("owner", "pairslice", "hybrid")
 
 
 class RasterConfig(NamedTuple):
@@ -38,6 +67,8 @@ class RasterConfig(NamedTuple):
     lane_align: int = 128
     pair_budget_factor: int = 8  # pair buffer cap, x N (0 = off)
     multi_frac: float = 1.0  # multi-tile capacity, x N (binning.py)
+    tile_shard_mode: str = "owner"  # the composite's split over gauss ranks
+    hot_split_tiles: int = 8  # "hybrid": the deepest tiles split by depth
 
 
 class RenderOutput(NamedTuple):
@@ -108,16 +139,19 @@ def render_gaussians(
     active: Optional[torch.Tensor] = None,
     means2d_offset: Optional[torch.Tensor] = None,
     config: RasterConfig = RasterConfig(),
-    gauss_axis=None,
-    tile_shard_mode=None,
+    gauss_group=None,
+    gauss_axis_size: int = 1,
 ) -> RenderOutput:
     """Differentiable 3D Gaussian splat render; see the module docstring.
 
-    Multi-device rendering (`gauss_axis`, `tile_shard_mode`) is not ported.
+    With gauss_group (gauss_axis_size ranks, each holding its block of the
+    gaussians in the [N, ...] inputs, means2d_offset excepted, which is
+    for the whole cloud) the outputs are for the whole cloud and image on
+    every rank of the group.
     """
-    if gauss_axis is not None or tile_shard_mode is not None:
-        raise NotImplementedError(
-            "gauss-axis and tile-sharded rendering are not ported")
+    if config.tile_shard_mode not in TILE_SHARD_MODES:
+        raise ValueError(f"unknown tile_shard_mode {config.tile_shard_mode!r};"
+                         f" one of {TILE_SHARD_MODES}")
     if config.backend not in BACKENDS:
         raise ValueError(f"unknown backend {config.backend!r}; one of {BACKENDS}")
     if config.backend == "cuda" and not posed_means.is_cuda:
@@ -132,6 +166,9 @@ def render_gaussians(
         colors = colors_precomp
 
     proj = project_gaussians(posed_means, posed_cov, camera, active=active)
+    if gauss_group is not None:
+        proj, colors, opacity = _gather_fields(proj, colors, opacity,
+                                               gauss_group)
     if means2d_offset is not None:
         proj = proj._replace(means2d=proj.means2d + means2d_offset)
 
@@ -147,20 +184,9 @@ def render_gaussians(
     else:
         ntx = (w + TILE - 1) // TILE
         nty = (h + TILE - 1) // TILE
-        bins = bin_gaussians(
-            proj, ntx, nty, config.tg_max, lane_align=config.lane_align,
-            pair_budget_factor=config.pair_budget_factor,
-            max_pairs_per_tile=config.max_pairs_per_tile,
-            multi_frac=config.multi_frac,
-        )
-        pay = build_payload(proj, colors, opacity, bins)
-        if config.backend == "cuda":
-            rgb_tiles, t_tiles = composite_mod.composite_tiles(
-                pay, bins.tile_offsets, bins.tile_counts, ntx, nty)
-        else:
-            rgb_tiles, t_tiles = composite_mod.composite_tiles_torch(
-                pay, bins.tile_offsets, bins.tile_counts, ntx, nty,
-                chunk=config.chunk)
+        rgb_tiles, t_tiles, bins = _composite(
+            proj, colors, opacity, ntx, nty, config, gauss_group,
+            gauss_axis_size)
         img, t_final = composite_mod.tiles_to_image(
             rgb_tiles, t_tiles, bg, ntx, nty, w, h)
         overflow, overflow_far = bins.overflow_count, bins.overflow_far
@@ -173,3 +199,123 @@ def render_gaussians(
         overflow=overflow,
         overflow_far=overflow_far,
     )
+
+
+def _gather_fields(proj: ProjectedGaussians, colors, opacity, group):
+    """The projected fields, colours and opacity of the whole cloud from
+    each rank's block: one differentiable gather of the float fields,
+    one of the integer ones."""
+    floats = torch.cat([proj.means2d, proj.conic, proj.depth[:, None],
+                        colors, opacity[:, None]], 1)
+    ints = torch.cat([proj.radius[:, None], proj.tile_rect,
+                      proj.visible[:, None].to(torch.int32)], 1)
+    f = all_gather_tiled(floats, group)
+    i = all_gather_tiled(ints, group)
+    proj = ProjectedGaussians(
+        means2d=f[:, 0:2], conic=f[:, 2:5], depth=f[:, 5], radius=i[:, 0],
+        tile_rect=i[:, 1:5], visible=i[:, 5].bool())
+    return proj, f[:, 6:9], f[:, 9]
+
+
+def _over_compose(rgb_parts, t_parts):
+    """Ordered over-compose of the ranks' partial segments ([G, T, 3, 256],
+    [G, T, 256]): rank order is depth order within every tile, and
+    (rgb, T) composition is associative. The 1e-4 stop applies per part:
+    a later part is dropped once the running T has crossed it."""
+    rgb_c, t_c = rgb_parts[0], t_parts[0]
+    for r2, t2 in zip(rgb_parts[1:], t_parts[1:]):
+        go = t_c > composite_mod.T_EPS
+        rgb_c = rgb_c + torch.where(go[:, None, :], t_c[:, None, :] * r2, 0.0)
+        t_c = torch.where(go, t_c * t2, t_c)
+    return rgb_c, t_c
+
+
+def _tiles(pay, offs, cnts, ntx, nty, config, tids=None):
+    if config.backend == "cuda":
+        return composite_mod.composite_tiles(pay, offs, cnts, ntx, nty,
+                                             tile_ids=tids)
+    return composite_mod.composite_tiles_torch(pay, offs, cnts, ntx, nty,
+                                               chunk=config.chunk,
+                                               tile_ids=tids)
+
+
+def _gather_tiles(rgb, t, group, stack: bool):
+    """A rank's tile outputs gathered over the group in one collective:
+    tiled ([G * T, ...]) or stacked ([G, T, ...])."""
+    both = torch.cat([rgb, t[:, None]], 1)
+    out = (all_gather_stack if stack else all_gather_tiled)(both, group)
+    return out[..., :3, :], out[..., 3, :]
+
+
+def _composite(proj, colors, opacity, ntx: int, nty: int,
+               config: RasterConfig, group, n: int):
+    """Bin, build the payload and composite, split over the gauss group's
+    n ranks as config.tile_shard_mode says. Returns the full grid's
+    (rgb [T, 3, 256], T_final [T, 256]) and the bins."""
+    num_tiles = ntx * nty
+    split = group is not None and n > 1
+    mode = config.tile_shard_mode
+    pairslice = split and mode == "pairslice"
+    dealt = split and num_tiles % n == 0
+    hybrid = dealt and mode == "hybrid" and config.hot_split_tiles > 0
+    # hybrid with no hot tiles is owner, as in the JAX package
+    owner = dealt and not pairslice and not hybrid
+    col = group_rank(group)
+    dev = proj.depth.device
+    bins = bin_gaussians(
+        proj, ntx, nty, config.tg_max, lane_align=config.lane_align,
+        pair_budget_factor=config.pair_budget_factor,
+        max_pairs_per_tile=config.max_pairs_per_tile,
+        multi_frac=config.multi_frac, owner=col if owner else 0,
+        num_owners=n if owner else 1, group=group if owner else None)
+    if pairslice:
+        # an equal slice of the pair array a rank, its width rounded up to
+        # lane_align so that the slices fall where JAX's do
+        p = bins.pair_src.shape[0]
+        la = max(config.lane_align, 1)
+        s = -(-(-(-p // n)) // la) * la
+        src = torch.cat([bins.pair_src, bins.pair_src.new_full(
+            (s * n - p,), -1)])
+        start = col * s
+        off = torch.clamp(bins.tile_offsets - start, 0, s)
+        end = torch.clamp(bins.tile_offsets + bins.tile_counts - start, 0, s)
+        bins = bins._replace(pair_src=src[start:start + s], tile_offsets=off,
+                             tile_counts=end - off)
+    pay = build_payload(proj, colors, opacity, bins)
+    offs, cnts, tids = bins.tile_offsets, bins.tile_counts, None
+    if owner or hybrid:
+        _, _, owned_np, perm_np = tile_owner_tables(ntx, nty, n)
+        owned = torch.as_tensor(owned_np[col], device=dev)
+        perm = torch.as_tensor(perm_np, device=dev).long()
+        tids = owned
+    if hybrid:
+        # the k deepest tiles (ties: the lower id first, as top_k) leave
+        # their owner's slot; each rank composites an equal depth range
+        k = min(config.hot_split_tiles, num_tiles)
+        hot_ids = torch.argsort(-bins.tile_counts, stable=True)[:k]
+        hot_cnt = bins.tile_counts[hot_ids]
+        hot_off = bins.tile_offsets[hot_ids]
+        share = -(-hot_cnt // n)
+        sub_off = hot_off + torch.minimum(col * share, hot_cnt)
+        sub_end = hot_off + torch.minimum((col + 1) * share, hot_cnt)
+        own_cnt = torch.where(torch.isin(owned, hot_ids), 0,
+                              bins.tile_counts[owned.long()])
+        offs = torch.cat([bins.tile_offsets[owned.long()], sub_off])
+        cnts = torch.cat([own_cnt, sub_end - sub_off]).to(torch.int32)
+        tids = torch.cat([owned, hot_ids.to(torch.int32)])
+    rgb, t = _tiles(pay, offs.contiguous(), cnts.contiguous(), ntx, nty,
+                    config, tids)
+    if pairslice:
+        rgb, t = _over_compose(*_gather_tiles(rgb, t, group, stack=True))
+    elif hybrid:
+        t_loc = owned.shape[0]
+        own_rgb, own_t = _gather_tiles(rgb[:t_loc], t[:t_loc], group,
+                                       stack=False)
+        hot_rgb, hot_t = _over_compose(*_gather_tiles(
+            rgb[t_loc:], t[t_loc:], group, stack=True))
+        rgb = own_rgb[perm].index_copy(0, hot_ids, hot_rgb)
+        t = own_t[perm].index_copy(0, hot_ids, hot_t)
+    elif owner:
+        rgb, t = _gather_tiles(rgb, t, group, stack=False)
+        rgb, t = rgb[perm], t[perm]
+    return rgb, t, bins

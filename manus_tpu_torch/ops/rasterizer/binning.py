@@ -19,15 +19,54 @@ package's single-device `bin_gaussians`, drop rules included:
      highest tile ids first), then capped at max_pairs_per_tile per tile
      (which drops the farthest pairs; `overflow_far` counts those).
 
+With `owner` and `num_owners` > 1 (owner-mode tile sharding,
+ops/rasterizer/api.py) a rank bins only the tiles it owns under
+`tile_owner_tables`: pairs of other tiles sort to the tail, the tile
+keys are the owned tiles' local slots, the budget is the owner's share,
+and the budget and cap drops are summed over the owners' `group`.
+
 Every step is a torch op on the gaussians' device.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from manus_tpu_torch.ops.rasterizer.projection import ProjectedGaussians
+from manus_tpu_torch.parallel.collectives import all_reduce_sum
+
+
+@functools.lru_cache(maxsize=64)
+def tile_owner_tables(num_tiles_x: int, num_tiles_y: int, num_owners: int):
+    """Static tile -> owner assignment for tile-sharded rasterisation.
+
+    Tiles are dealt one by one in diagonal scan order ((tx + ty, tx)
+    ascending), so spatial neighbours go to different owners for any n
+    (a flat t mod n puts each owner on a vertical stripe when n divides
+    the grid width) and every owner gets exactly T/n tiles.
+
+    Returns numpy arrays: owner[T], rank[T] (slot within the owner's
+    id-ascending list), owned_ids[n, T/n] and perm[T] (the position of
+    global tile t in the owner-major gather of the owners' slots).
+    """
+    assert (num_tiles_x * num_tiles_y) % num_owners == 0
+    t = np.arange(num_tiles_x * num_tiles_y)
+    tx, ty = t % num_tiles_x, t // num_tiles_x
+    deal = np.lexsort((tx, tx + ty))  # diagonal scan order
+    owner = np.empty(t.shape[0], np.int32)
+    owner[deal] = np.arange(t.shape[0], dtype=np.int32) % num_owners
+    t_local = t.shape[0] // num_owners
+    rank = np.zeros_like(owner)
+    owned_ids = np.empty((num_owners, t_local), np.int32)
+    for c in range(num_owners):
+        ids = np.flatnonzero(owner == c)
+        owned_ids[c] = ids
+        rank[ids] = np.arange(ids.shape[0], dtype=np.int32)
+    perm = owner * t_local + rank
+    return owner, rank, owned_ids, perm
 
 
 class TileBins(NamedTuple):
@@ -35,7 +74,8 @@ class TileBins(NamedTuple):
 
     pair_src: [P_budget] int32, the source gaussian of each sorted pair
       slot; -1 for the invalid tail.
-    tile_offsets: [T] int32 segment start of each tile (not aligned).
+    tile_offsets: [T] int32 segment start of each tile (not aligned); in
+      owner mode [T / num_owners], slot i is tile owned_ids[owner, i].
     tile_counts: [T] int32 pairs per tile (budget- and cap-clamped).
     overflow_count: [] int32 pairs dropped by every rule.
     overflow_far: [] int32 the part of overflow_count from the per-tile cap.
@@ -70,14 +110,23 @@ def bin_gaussians(
     max_pairs_per_tile: int = 0,
     multi_frac: float = 1.0,
     multi_floor: int = 4096,
+    owner: int = 0,
+    num_owners: int = 1,
+    group=None,
 ) -> TileBins:
-    """See the module docstring."""
+    """See the module docstring. `owner` is this rank's place in the
+    owners' `group` (a torch.distributed group of num_owners ranks)."""
     rect = proj.tile_rect
     visible = proj.visible
     device = rect.device
     n = proj.depth.shape[0]
     num_tiles = num_tiles_x * num_tiles_y
     i32 = torch.int32
+    sharded = num_owners > 1
+    t_local = num_tiles // num_owners
+    if sharded:
+        owner_np, rank_np, owned_np, _ = tile_owner_tables(
+            num_tiles_x, num_tiles_y, num_owners)
 
     rw = rect[:, 2] - rect[:, 0]
     rh = rect[:, 3] - rect[:, 1]
@@ -144,19 +193,37 @@ def bin_gaussians(
     pair_depth = torch.cat(depth_blocks)
     pair_gidx = torch.cat(gidx_blocks)
     n_exp = pair_tile.shape[0]
+    pair_key = pair_tile
+    if sharded:
+        # only the owned tiles' pairs, keyed by their local slot; the rest
+        # key to the t_local sentinel and sort to the tail
+        safe_t = torch.clamp(pair_tile, max=num_tiles - 1).long()
+        is_local = (pair_tile < num_tiles) & (
+            torch.as_tensor(owner_np, device=device)[safe_t] == owner)
+        pair_key = torch.where(
+            is_local, torch.as_tensor(rank_np, device=device)[safe_t],
+            torch.full_like(pair_tile, t_local))
     perm = torch.argsort(pair_gidx, stable=True)
     perm = perm[torch.argsort(pair_depth[perm], stable=True)]
-    perm = perm[torch.argsort(pair_tile[perm], stable=True)]
+    perm = perm[torch.argsort(pair_key[perm], stable=True)]
     sorted_gidx = pair_gidx[perm]
 
     valid_tiles = pair_tile[pair_tile < num_tiles]
     flat_counts = torch.bincount(valid_tiles.long(), minlength=num_tiles).to(i32)
+    if sharded:
+        flat_counts = flat_counts[torch.as_tensor(owned_np[owner],
+                                                  device=device).long()]
     bounds = torch.cat([torch.zeros(1, dtype=i32, device=device),
                         torch.cumsum(flat_counts, 0, dtype=i32)])
 
     p_budget = n_exp
     if pair_budget_factor > 0:
         p_budget = min(p_budget, n * pair_budget_factor)
+    if sharded:
+        # 1.5x the owner's even share of the budget plus an 8-lane floor
+        # (JAX's rule: a small grid cannot be balanced statically)
+        p_budget = min(p_budget,
+                       -(-(p_budget * 3) // (2 * num_owners)) + 8 * lane_align)
     p_budget = ((p_budget + lane_align - 1) // lane_align) * lane_align
 
     starts = torch.clamp(bounds[:-1], max=p_budget)
@@ -167,9 +234,13 @@ def bin_gaussians(
     if max_pairs_per_tile > 0:
         overflow_far = torch.clamp(counts - max_pairs_per_tile, min=0).sum().to(i32)
         counts = torch.clamp(counts, max=max_pairs_per_tile)
+    if sharded:
+        # each pair has one owner: the global totals on every rank
+        overflow_budget, overflow_far = all_reduce_sum(
+            torch.stack([overflow_budget, overflow_far]), group).unbind(0)
     overflow = overflow_trunc + overflow_budget + overflow_far
 
-    total_valid = torch.clamp(bounds[num_tiles], max=p_budget)
+    total_valid = torch.clamp(bounds[t_local], max=p_budget)
     src = sorted_gidx[:p_budget]
     if p_budget > n_exp:  # lane rounding can exceed the raw pair count
         src = torch.cat([src, torch.full((p_budget - n_exp,), -1, dtype=i32,

@@ -16,7 +16,13 @@ back (numerics in csrc/composite.cu and oracle.py).
   * `composite_tiles` launches the kernels for a CUDA payload and runs the
     plain version for a CPU payload.
 
-Outputs: rgb [T, 3, 256] and t_final [T, 256].
+Every function takes the [T] tile slots' `tile_ids` (global tile ids, the
+JAX kernels' `tile_ids=`): slot t composites tile tile_ids[t] of the
+ntx x nty grid, for a rank that composites a subset of the grid (owner
+and hybrid tile sharding, ops/rasterizer/api.py). None means the full
+grid, slot t = tile t.
+
+Outputs: rgb [T, 3, 256] and t_final [T, 256], in slot order.
 """
 from __future__ import annotations
 
@@ -59,11 +65,11 @@ _SIGNATURES = {
     "composite_chunk": ([], ctypes.c_int),
     "composite_occupancy": ([_P], ctypes.c_int),
     "composite_fwd": (
-        [_P, _I64, _P, _P, _I32, _I32, _P, _P, _P, _P, _P, _P, _I32, _P, _P,
-         _F32, _P], ctypes.c_int),
+        [_P, _I64, _P, _P, _P, _I32, _I32, _P, _P, _P, _P, _P, _P, _I32, _P,
+         _P, _F32, _P], ctypes.c_int),
     "composite_bwd": (
-        [_P, _I64, _P, _P, _I32, _I32, _P, _P, _I32, _P, _P, _P, _P, _P, _P,
-         _P, _P], ctypes.c_int),
+        [_P, _I64, _P, _P, _P, _I32, _I32, _P, _P, _I32, _P, _P, _P, _P, _P,
+         _P, _P, _P], ctypes.c_int),
     "composite_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -92,7 +98,12 @@ def _check_launch(lib, rc: int, what: str):
         raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
 
 
-def _check_inputs(payload, offsets, counts, ntx: int, nty: int):
+def num_slots(ntx: int, nty: int, tile_ids) -> int:
+    """The number of tile slots: the grid's, or the tile ids'."""
+    return ntx * nty if tile_ids is None else tile_ids.shape[0]
+
+
+def _check_inputs(payload, offsets, counts, ntx: int, nty: int, tile_ids):
     if not payload.is_cuda:
         raise ValueError("the CUDA composite needs a CUDA payload")
     if payload.dtype != torch.float32 or payload.dim() != 2 \
@@ -100,22 +111,27 @@ def _check_inputs(payload, offsets, counts, ntx: int, nty: int):
         raise ValueError(
             f"payload must be a contiguous float32 [{NUM_FIELDS}, P] tensor, "
             f"got {payload.dtype} {tuple(payload.shape)}")
-    for name, x in (("tile_offsets", offsets), ("tile_counts", counts)):
+    t = num_slots(ntx, nty, tile_ids)
+    named = [("tile_offsets", offsets), ("tile_counts", counts)]
+    if tile_ids is not None:
+        named.append(("tile_ids", tile_ids))
+    for name, x in named:
         if x.device != payload.device or x.dtype != torch.int32 \
-                or x.shape != (ntx * nty,) or not x.is_contiguous():
+                or x.shape != (t,) or not x.is_contiguous():
             raise ValueError(
-                f"{name} must be a contiguous int32 [{ntx * nty}] tensor on "
+                f"{name} must be a contiguous int32 [{t}] tensor on "
                 f"{payload.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
-def composite_fwd_cuda(payload, offsets, counts, ntx: int, nty: int):
+def composite_fwd_cuda(payload, offsets, counts, ntx: int, nty: int,
+                       tile_ids=None):
     """Launch the forward (csrc/composite.cu: the plan of (tile, chunk)
     items, the chunk pass and the second walk, three device kernels, one
     count). Returns (rgb [T,3,256], t_final [T,256], log_t [T,256], n_walk
     [T,256] int32, ChunkState); the last three feed the backward."""
-    _check_inputs(payload, offsets, counts, ntx, nty)
+    _check_inputs(payload, offsets, counts, ntx, nty, tile_ids)
     lib = _library()
-    t = ntx * nty
+    t = num_slots(ntx, nty, tile_ids)
     dev = payload.device
     n_items = max_items(payload.shape[1], t, lib.composite_chunk())
     rgb = torch.empty(t, 3, N_PX, dtype=torch.float32, device=dev)
@@ -130,7 +146,7 @@ def composite_fwd_cuda(payload, offsets, counts, ntx: int, nty: int):
     chunk_sums = torch.empty(n_items, 5, N_PX, dtype=torch.float32, device=dev)
     rc = lib.composite_fwd(
         payload.data_ptr(), payload.shape[1], offsets.data_ptr(),
-        counts.data_ptr(), t, ntx, rgb.data_ptr(), t_final.data_ptr(),
+        counts.data_ptr(), _ptr(tile_ids), t, ntx, rgb.data_ptr(), t_final.data_ptr(),
         log_t.data_ptr(), n_walk.data_ptr(), state.item_start.data_ptr(),
         state.item_tile.data_ptr(), n_items, chunk_sums.data_ptr(),
         state.saved.data_ptr(), STOP_MARGIN,
@@ -138,20 +154,27 @@ def composite_fwd_cuda(payload, offsets, counts, ntx: int, nty: int):
     )
     _check_launch(lib, rc, "composite_fwd")
     composite_fwd_cuda.launches += 1
+    composite_fwd_cuda.tile_id_launches += tile_ids is not None
     return rgb, t_final, log_t, n_walk, state
 
 
+# launches, and of those the ones over tile ids (a subset of the grid)
 composite_fwd_cuda.launches = 0
+composite_fwd_cuda.tile_id_launches = 0
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def composite_bwd_cuda(payload, offsets, counts, ntx: int, nty: int,
                        d_rgb, d_tfin, t_final, log_t, n_walk,
-                       state: ChunkState):
+                       state: ChunkState, tile_ids=None):
     """Launch the backward kernel on what the forward returned. Returns
     d_payload [16, P]."""
-    _check_inputs(payload, offsets, counts, ntx, nty)
+    _check_inputs(payload, offsets, counts, ntx, nty, tile_ids)
     lib = _library()
-    t = ntx * nty
+    t = num_slots(ntx, nty, tile_ids)
     n_items = max_items(payload.shape[1], t, lib.composite_chunk())
     for name, x, shape, dtype in (
         ("d_rgb", d_rgb, (t, 3, N_PX), torch.float32),
@@ -170,7 +193,8 @@ def composite_bwd_cuda(payload, offsets, counts, ntx: int, nty: int,
     d_payload = torch.zeros_like(payload)
     rc = lib.composite_bwd(
         payload.data_ptr(), payload.shape[1], offsets.data_ptr(),
-        counts.data_ptr(), t, ntx, state.item_start.data_ptr(),
+        counts.data_ptr(), _ptr(tile_ids), t, ntx,
+        state.item_start.data_ptr(),
         state.item_tile.data_ptr(), n_items, state.saved.data_ptr(),
         d_rgb.data_ptr(), d_tfin.data_ptr(), t_final.data_ptr(),
         log_t.data_ptr(), n_walk.data_ptr(), d_payload.data_ptr(),
@@ -178,22 +202,26 @@ def composite_bwd_cuda(payload, offsets, counts, ntx: int, nty: int,
     )
     _check_launch(lib, rc, "composite_bwd")
     composite_bwd_cuda.launches += 1
+    composite_bwd_cuda.tile_id_launches += tile_ids is not None
     return d_payload
 
 
 composite_bwd_cuda.launches = 0
+composite_bwd_cuda.tile_id_launches = 0
 
 
 class CompositeFn(torch.autograd.Function):
     """The CUDA forward kernel, with the CUDA backward kernel as its VJP."""
 
     @staticmethod
-    def forward(ctx, payload, offsets, counts, ntx: int, nty: int):
+    def forward(ctx, payload, offsets, counts, ntx: int, nty: int,
+                tile_ids=None):
         rgb, t_final, log_t, n_walk, state = composite_fwd_cuda(
-            payload, offsets, counts, ntx, nty)
+            payload, offsets, counts, ntx, nty, tile_ids)
         ctx.save_for_backward(payload, offsets, counts, t_final, log_t, n_walk,
                               *state)
         ctx.grid = (ntx, nty)
+        ctx.tile_ids = tile_ids
         return rgb, t_final
 
     @staticmethod
@@ -205,13 +233,16 @@ class CompositeFn(torch.autograd.Function):
         d_tfin = torch.zeros_like(t_final) if d_tfin is None else d_tfin
         d_payload = composite_bwd_cuda(
             payload, offsets, counts, *ctx.grid, d_rgb.contiguous(),
-            d_tfin.contiguous(), t_final, log_t, n_walk, ChunkState(*state))
-        return d_payload, None, None, None, None
+            d_tfin.contiguous(), t_final, log_t, n_walk, ChunkState(*state),
+            ctx.tile_ids)
+        return d_payload, None, None, None, None, None
 
 
-def tile_pixel_coords(ntx: int, nty: int, device):
-    """Pixel-centre coordinates per tile: two [T, 256] float32 tensors."""
-    t = torch.arange(ntx * nty, device=device)[:, None]
+def tile_pixel_coords(ntx: int, nty: int, device, tile_ids=None):
+    """Pixel-centre coordinates per tile slot: two [T, 256] float32
+    tensors."""
+    t = (torch.arange(ntx * nty, device=device) if tile_ids is None
+         else tile_ids.to(device=device, dtype=torch.long))[:, None]
     i = torch.arange(N_PX, device=device)[None, :]
     px = ((t % ntx) * TILE + i % TILE).to(torch.float32)
     py = ((t // ntx) * TILE + i // TILE).to(torch.float32)
@@ -219,20 +250,23 @@ def tile_pixel_coords(ntx: int, nty: int, device):
 
 
 def composite_tiles_torch(payload, offsets, counts, ntx: int, nty: int,
-                          chunk: int = 64):
+                          chunk: int = 64, tile_ids=None):
     """Plain PyTorch composite, same math as the kernels; autograd gives
     its backward. Walks the pairs in chunks; chunk k only touches the
     tiles with more than k * chunk pairs."""
     dev = payload.device
-    t = ntx * nty
+    t = num_slots(ntx, nty, tile_ids)
     p = payload.shape[1]
-    px, py = tile_pixel_coords(ntx, nty, dev)
+    px, py = tile_pixel_coords(ntx, nty, dev, tile_ids)
     log_t = torch.zeros(t, N_PX, device=dev)
     accum = torch.zeros(t, 3, N_PX, device=dev)
     t_min = torch.ones(t, N_PX, device=dev)
     counts = counts.long()
     max_count = int(counts.max()) if t else 0
-    for k0 in range(0, max_count, chunk):
+    # at least one pass, over no tiles when there are no pairs: the outputs
+    # stay a function of the payload, so that a rank of a sharded render
+    # with nothing to composite runs the backward of its collectives too
+    for k0 in range(0, max(max_count, 1), chunk):
         live = torch.nonzero(counts > k0).squeeze(1)
         j = k0 + torch.arange(chunk, device=dev)
         in_seg = j[None, :] < counts[live, None]  # [L, G]
@@ -296,7 +330,7 @@ def _chunk_terms(payload, cols, px, py):
 
 @torch.no_grad()
 def composite_tiles_split_torch(payload, offsets, counts, ntx: int, nty: int,
-                                chunk: int):
+                                chunk: int, tile_ids=None):
     """The plain model of the CUDA forward's split by depth range.
 
     Pass 1, every (tile, chunk) item on its own: from T = 1 and with no
@@ -314,8 +348,8 @@ def composite_tiles_split_torch(payload, offsets, counts, ntx: int, nty: int,
     composite_split_backward_torch. Used by the tests, by nothing on the
     main path."""
     dev = payload.device
-    t, p = ntx * nty, payload.shape[1]
-    px, py = tile_pixel_coords(ntx, nty, dev)
+    t, p = num_slots(ntx, nty, tile_ids), payload.shape[1]
+    px, py = tile_pixel_coords(ntx, nty, dev, tile_ids)
     counts_l = counts.long()
     n_chunks = (counts_l + chunk - 1) // chunk
     item_start = torch.cat([n_chunks.new_zeros(1), torch.cumsum(n_chunks, 0)])
@@ -372,7 +406,7 @@ def composite_tiles_split_torch(payload, offsets, counts, ntx: int, nty: int,
 @torch.no_grad()
 def composite_split_backward_torch(payload, offsets, counts, ntx: int, nty: int,
                                    chunk: int, d_rgb, d_tfin, t_final, log_t,
-                                   n_walk, state: ChunkState):
+                                   n_walk, state: ChunkState, tile_ids=None):
     """The plain model of the CUDA backward: d_payload [16, P] from the
     split forward's outputs and saved state, every (tile, chunk) item on
     its own. A pixel takes part in the chunks up to the one that holds its
@@ -381,7 +415,7 @@ def composite_split_backward_torch(payload, offsets, counts, ntx: int, nty: int,
     saved log T and, behind, the saved colours of the later chunks summed
     farthest first (not the total less a prefix: that cancels)."""
     dev = payload.device
-    px, py = tile_pixel_coords(ntx, nty, dev)
+    px, py = tile_pixel_coords(ntx, nty, dev, tile_ids)
     counts_l = counts.long()
     d_payload = torch.zeros_like(payload)
     for tile in torch.nonzero(counts_l).squeeze(1).tolist():
@@ -430,12 +464,13 @@ def composite_split_backward_torch(payload, offsets, counts, ntx: int, nty: int,
 
 
 def composite_tiles(payload, offsets, counts, ntx: int, nty: int,
-                    chunk: int = 64):
+                    chunk: int = 64, tile_ids=None):
     """The CUDA kernels for a CUDA payload; the plain version for a CPU
     payload (`chunk` only applies there)."""
     if payload.is_cuda:
-        return CompositeFn.apply(payload, offsets, counts, ntx, nty)
-    return composite_tiles_torch(payload, offsets, counts, ntx, nty, chunk)
+        return CompositeFn.apply(payload, offsets, counts, ntx, nty, tile_ids)
+    return composite_tiles_torch(payload, offsets, counts, ntx, nty, chunk,
+                                 tile_ids)
 
 
 def tiles_to_image(rgb_tiles, t_final, bg, ntx: int, nty: int,

@@ -16,6 +16,15 @@ The trainer keeps a private copy of the config: it may leave lpips_loss
 out of the training loss and maps the raster backend onto the model's
 device, and the caller's config (the one the CLI snapshots) stays as it
 was given.
+
+With trainer.data_axis or trainer.gauss_axis > 1 it trains over a rank
+mesh (parallel/distributed.make_multihost_mesh, one process a rank,
+the process group already joined): the state is replicated from the
+first rank, every rank draws the same batch from the same seed and
+loads only its data row's views, and the sharded step leaves the same
+state on every rank. Only the mesh's first rank writes files (CSVs,
+logs, images, PLYs, checkpoints); the others wait for it at a barrier
+after each checkpoint.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from manus_tpu_torch.config import (
     ExperimentConfig,
@@ -40,6 +50,11 @@ from manus_tpu_torch.data.voxel import visualize_skin_weights
 from manus_tpu_torch.models.densify import prune_by_mask
 from manus_tpu_torch.ops.outliers import outlier_mask
 from manus_tpu_torch.ops.skinning import bone_deformation_transforms
+from manus_tpu_torch.parallel.distributed import (
+    make_multihost_mesh,
+    process_local_batch_indices,
+)
+from manus_tpu_torch.parallel.mesh import check_replicated, replicate_state
 from manus_tpu_torch.train import checkpoint as ckpt_mod
 from manus_tpu_torch.train import lpips as lpips_mod
 from manus_tpu_torch.train.optim import array_reset_rows
@@ -58,16 +73,22 @@ MIB = 1 << 20
 
 
 class MetricsCSV:
-    """A CSV file with a header, one row appended per write."""
+    """A CSV file with a header, one row appended per write; with
+    enabled False (a rank that does not write) it writes nothing."""
 
-    def __init__(self, path: str, header):
+    def __init__(self, path: str, header, enabled: bool = True):
         self.path = path
+        self.enabled = enabled
+        if not enabled:
+            return
         os.makedirs(os.path.dirname(path), exist_ok=True)
         if not os.path.exists(path):
             with open(path, "w", newline="") as f:
                 csv.writer(f).writerow(header)
 
     def write(self, row):
+        if not self.enabled:
+            return
         with open(self.path, "a", newline="") as f:
             csv.writer(f).writerow(row)
 
@@ -115,7 +136,8 @@ def _strip_loss(loss_cfg, name: str):
 
 
 class Trainer:
-    """Single-workload trainer (object or hand) on the model's device.
+    """Single-workload trainer (object or hand) on the model's device,
+    over a rank mesh when the config's axes ask for one.
 
     `timings` collects host wall times for the trainer layer's metrics:
     step_s (one per fit iteration, batch to events), save_s and save_mb
@@ -151,18 +173,28 @@ class Trainer:
             cfg.trainer.output_dir, cfg.trainer.project,
             cfg.dataset.subject or "synthetic", cfg.trainer.exp_name,
         )
-        os.makedirs(self.out_dir, exist_ok=True)
         self.ckpt_dir = os.path.join(self.out_dir, "checkpoints")
+        self.mesh = None
         if cfg.trainer.data_axis > 1 or cfg.trainer.gauss_axis > 1:
             assert cfg.trainer.batch_views % cfg.trainer.data_axis == 0, (
                 "batch_views must divide evenly over data_axis")
             assert cfg.capacity % cfg.trainer.gauss_axis == 0, (
                 "capacity must divide evenly over gauss_axis")
-            raise NotImplementedError(
-                "multi-device training (trainer.data_axis / gauss_axis > 1) "
-                "is not ported: ROADMAP Queue A item 8")
+            self.mesh = make_multihost_mesh(n_data=cfg.trainer.data_axis,
+                                            n_gauss=cfg.trainer.gauss_axis)
+        # the rank that writes files: the mesh's first, or the only one
+        self.writer = self.mesh is None or self.mesh.is_first
+        if self.writer:
+            os.makedirs(self.out_dir, exist_ok=True)
 
         self.state = init_train_state(model, seed=cfg.trainer.seed)
+        if self.mesh is not None:
+            self.state = replicate_state(self.state, self.mesh)
+            m, v = self.mesh, cfg.trainer.batch_views
+            log(f"[mesh] {m.n_data}x{m.n_gauss}: rank {m.rank} at data row "
+                f"{m.data_index}, gauss column {m.gauss_index}; loads views "
+                f"{process_local_batch_indices(v, m).tolist()} of each "
+                f"batch of {v}, shard mode {cfg.raster.tile_shard_mode}")
         self.timings = dict(step_s=[], save_s=[], save_mb=[], val_s=[],
                             image_cache_mb=0.0, lpips_cache_mb=0.0)
         # two LPIPS nets, as in the reference (loss_utils.py:17-19): VGG16
@@ -195,7 +227,7 @@ class Trainer:
                 "column stays live). Supply pretrained weights "
                 "(loss.lpips_weights=...) to restore the reference loss.")
         self.train_step = make_train_step(
-            cfg, dataset.extent, articulated, voxel_grid,
+            cfg, dataset.extent, articulated, voxel_grid, mesh=self.mesh,
             lpips_params=self.lpips_params)
         self.densify_step, self.opacity_reset = make_densify_step(
             cfg, dataset.extent)
@@ -204,15 +236,16 @@ class Trainer:
         self.val_csv = MetricsCSV(
             os.path.join(self.out_dir, "results", "val_results.csv"),
             ["name", "step", "psnr", "ssim", "lpips", "rendering_time",
-             "pair_overflow", "lpips_mode"],
+             "pair_overflow", "lpips_mode"], enabled=self.writer,
         )
         self.train_csv = MetricsCSV(
             os.path.join(self.out_dir, "logs", "train_metrics.csv"),
             ["step", "loss", "psnr", "num_active", "iters_per_s"],
+            enabled=self.writer,
         )
-        self.loggers = ScalarLoggers(cfg.trainer.loggers, self.out_dir,
-                                     cfg.trainer.exp_name,
-                                     config_to_dict(cfg), log=log)
+        self.loggers = ScalarLoggers(
+            cfg.trainer.loggers if self.writer else (), self.out_dir,
+            cfg.trainer.exp_name, config_to_dict(cfg), log=log)
         self._rng = np.random.RandomState(cfg.trainer.seed)
         self.bg = (np.ones(3, np.float32) if cfg.dataset.bg_color == "white"
                    else np.zeros(3, np.float32))
@@ -291,10 +324,15 @@ class Trainer:
         return cache
 
     def sample_batch(self):
+        """The next batch: a frame and batch_views views drawn from the
+        trainer's seed; over a mesh the same draw on every rank, of which
+        each loads its own views (process_local_batch_indices)."""
         v = self.cfg.trainer.batch_views
         ds = self.dataset
         f = self._rng.randint(0, ds.num_frames) if self.articulated else 0
         views = self._rng.randint(0, ds.num_views, size=v)
+        if self.mesh is not None:
+            views = views[process_local_batch_indices(v, self.mesh)]
         random_bg = self.cfg.dataset.bg_color == "random"
         if random_bg:
             # a fresh background each fetch, composited into the gt and
@@ -512,7 +550,7 @@ class Trainer:
                     [f"{self.cfg.trainer.exp_name}/f{f}_v{vi}", step,
                      psnrs[-1], ssims[-1], lpipss[-1], times[-1], ovfs[-1],
                      self.lpips_eval_mode])
-            if dump_artifacts:
+            if dump_artifacts and self.writer:
                 # pred | gt | diff strip (reference base.py:112-131)
                 gt = np.asarray(raw["rgb"][0], np.float32)
                 diff = np.abs(gt - np.clip(pred, 0, 1))
@@ -557,6 +595,18 @@ class Trainer:
 
     # ---- checkpointing --------------------------------------------------
     def save(self, step: int, loss: float):
+        """Write a checkpoint; over a mesh, check first that every rank
+        holds the same state, and let the first rank write while the
+        others wait. Returns the path (None on a rank that does not
+        write)."""
+        if self.mesh is not None:
+            check_replicated(self.state, self.mesh, f"states at step {step}")
+        path = self._save(step, loss) if self.writer else None
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.group)
+        return path
+
+    def _save(self, step: int, loss: float):
         t0 = time.perf_counter()
         extra = dict(num_active=np.asarray(
             int(self.state.model.active.sum()), np.int32))

@@ -5,9 +5,16 @@ One step renders each view, sums the losses, takes gradients with
 autograd, applies masked per-group Adam (and, with trainable point skin
 weights, their own Adam), runs the mask-pruning phase and accumulates
 densification statistics. Batches carry a leading view axis V; views are
-an unrolled loop. Single device; decisions that depend only on the step
-number are taken on the host, and those that depend on data are tensor
-masks, so a step or a densify event makes no host round-trip.
+an unrolled loop. Decisions that depend only on the step number are
+taken on the host, and those that depend on data are tensor masks, so a
+step or a densify event makes no host round-trip.
+
+With a rank mesh (parallel/mesh.py) the step is the JAX package's
+shard_map step: each rank takes its data row's views and its gauss
+column's block of the gaussians, computes the gradients of that part,
+and the reductions of manus_tpu/train/workloads.py:288-318 put the full
+gradients together on every rank, where the update runs on the same
+values everywhere.
 """
 from __future__ import annotations
 
@@ -30,6 +37,13 @@ from manus_tpu_torch.ops.grid_sample import skinning_weights_from_voxel_grid
 from manus_tpu_torch.ops.mask_prune import points_outside_mask
 from manus_tpu_torch.ops.rasterizer.api import RasterConfig, render_gaussians
 from manus_tpu_torch.ops.skinning import skin_gaussians
+from manus_tpu_torch.parallel.collectives import (
+    all_gather_stack,
+    all_gather_tiled,
+    all_reduce_mean,
+    broadcast,
+)
+from manus_tpu_torch.parallel.mesh import gauss_rows
 from manus_tpu_torch.train import lpips as lpips_mod
 from manus_tpu_torch.train import optim as optim_mod
 from manus_tpu_torch.utils import losses as loss_mod
@@ -98,7 +112,8 @@ def make_raster_config(cfg: ExperimentConfig) -> RasterConfig:
         tg_max=r.tg_max, chunk=r.chunk,
         max_pairs_per_tile=r.max_pairs_per_tile, backend=r.backend,
         lane_align=r.lane_align, pair_budget_factor=r.pair_budget_factor,
-        multi_frac=r.multi_frac,
+        multi_frac=r.multi_frac, tile_shard_mode=r.tile_shard_mode,
+        hot_split_tiles=r.hot_split_tiles,
     )
 
 
@@ -123,11 +138,28 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
     and no grid the model's per-point skin weights are trained at
     opts.skinning_lr and stay a convex blend.
     `extent` is read by the densify events (make_densify_step), not here.
+
+    With `mesh` (parallel/mesh.py make_mesh, this rank a member) the batch
+    is the rank's own views (mesh.shard_batch of the whole batch, or the
+    views distributed.process_local_batch_indices names) and the state is
+    the same on every rank (mesh.replicate_state). The rank computes the
+    loss and gradients of its views and its block of the gaussians under
+    cfg.raster.tile_shard_mode; the loss, parameter and skin-weight
+    gradients are averaged over the data group, the parameter gradients
+    divided by the gauss axis's size (each of its ranks computes the same
+    loss from the gathered fields, so the gathers' sum-scatter counts each
+    cotangent n_gauss times) and gathered over it, the viewspace gradients
+    scaled by the local view count, averaged over the gauss group and
+    gathered over the data group, and the overflow counts summed over the
+    tile owners: the same metrics and new state on every rank.
     """
     del extent
     opts = cfg.model
-    if mesh is not None:
-        raise NotImplementedError("multi-device training is not ported yet")
+    n_gauss = 1 if mesh is None else mesh.n_gauss
+    g_group = None if mesh is None else mesh.gauss_group
+    d_group = None if mesh is None else mesh.data_group
+    if mesh is not None and not mesh.member:
+        raise ValueError("this rank is not in the mesh")
     if articulated and (voxel_grid is not None) != (
             cfg.skin_init == "mano_init_voxel"):
         raise ValueError(
@@ -146,13 +178,17 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
         if lpips_engine == "pallas":
             lpips_params = lpips_mod.pack_lpips_params(lpips_params)
 
-    def loss_fn(params, m2d_off, active, skin_w, batch, lpips_on: bool):
+    def loss_fn(params, m2d_off, active, skin_w, batch, lpips_on: bool,
+                active_full):
         posed_xyz, posed_cov, tf = forward_gaussians(
             params, active, skin_w, batch.get("bone_tf"), opts)
         feats = get_features(params)
         opac = get_opacity(params)
         scaling = get_scaling(params, opts.isotropic_scaling)
-        totals, radii, renders, parts, overflow = [], [], [], [], []
+        # the loss terms that reduce over the gaussians see the whole cloud,
+        # so that every gauss rank computes the same loss
+        scaling_full = all_gather_tiled(scaling, g_group)
+        totals, radii, parts, overflow = [], [], [], []
         gt_feats = batch.get("lpips_gt_feats")
         for i in range(batch["rgb"].shape[0]):
             out = render_gaussians(
@@ -160,33 +196,73 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
                 index_camera(batch["cameras"], i), batch["bg"],
                 sh_degree=opts.sh_degree, tf=tf, active=active,
                 means2d_offset=m2d_off[i], config=raster_cfg,
+                gauss_group=g_group, gauss_axis_size=n_gauss,
             )
             total, part = loss_mod.compute_losses(
-                out.render, batch["rgb"][i], scaling, active, loss_names,
+                out.render, batch["rgb"][i], scaling_full, active_full,
+                loss_names,
                 loss_weights, opts.condition_number,
                 lpips_params=lpips_params, lpips_enabled=lpips_on,
                 lpips_downsample=cfg.loss.lpips_downsample,
                 lpips_engine=lpips_engine,
                 lpips_gt_feats=None if gt_feats is None
                 else [f[i] for f in gt_feats])
+            if i == 0:
+                psnr = loss_mod.psnr(out.render.detach(), batch["rgb"][0])
             totals.append(total)
             radii.append(out.radii)
-            renders.append(out.render)
             parts.append(part)
             overflow.append(torch.stack([out.overflow, out.overflow_far]))
+        radii = torch.stack(radii)
         aux = dict(
-            radii=torch.stack(radii), renders=torch.stack(renders),
+            radii=radii, max_radius=radii.max(),
+            psnr=psnr,
             parts={k: torch.stack([p[k] for p in parts]) for k in parts[0]},
             posed_xyz=posed_xyz.detach(), overflow=torch.stack(overflow),
         )
         return torch.stack(totals).mean(), aux
 
+    def _reduce_over_mesh(loss, g_params, g_sw, g_m2d, aux, do_stats: bool):
+        """The JAX step's reductions (workloads.py:288-318) and out_specs:
+        everything the update reads, the same on every rank."""
+        loss = all_reduce_mean(loss, d_group)
+
+        def param_grad(g):
+            g = all_reduce_mean(g, d_group) / n_gauss
+            return all_gather_tiled(g, g_group)
+
+        g_params = GaussianParams(*(param_grad(g) for g in g_params))
+        if g_sw is not None:
+            g_sw = param_grad(g_sw)
+        aux = dict(aux, posed_xyz=all_gather_tiled(aux["posed_xyz"], g_group))
+        if do_stats:
+            # the viewspace gradients and radii of every view, in view order
+            g_m2d = all_gather_tiled(all_reduce_mean(g_m2d, g_group), d_group)
+            aux["radii"] = all_gather_tiled(aux["radii"], d_group)
+        # per-view metrics of every data row; the psnr is the first view's
+        parts = aux["parts"]
+        per_view = torch.stack([aux["overflow"][:, 0].float(),
+                                aux["overflow"][:, 1].float(),
+                                *(parts[k].detach() for k in parts)], 1)
+        rows = all_gather_tiled(per_view, d_group)
+        head = all_gather_stack(torch.stack(
+            [aux["psnr"], aux["max_radius"].float()]), d_group)
+        aux.update(
+            overflow=rows[:, :2].to(aux["overflow"].dtype),
+            parts={k: rows[:, 2 + i] for i, k in enumerate(parts)},
+            psnr=head[0, 0], max_radius=head[:, 1].max().to(torch.int32))
+        return loss, g_params, g_sw, g_m2d, aux
+
     def train_step(state: TrainState, batch):
         v = batch["rgb"].shape[0]
         model = state.model
         n = model.capacity
+        step = state.step
+        # this rank's block of the gaussians (all of them without a mesh)
+        rows = slice(0, n) if mesh is None else gauss_rows(n, mesh)
         skin_w = resolve_skin_weights(model, voxel_grid)
-        params = GaussianParams(*(p.detach().requires_grad_(True)
+        skin_w = None if skin_w is None else skin_w[rows]
+        params = GaussianParams(*(p[rows].detach().requires_grad_(True)
                                   for p in model.params))
         m2d = torch.zeros(v, n, 2, device=model.active.device,
                           requires_grad=True)
@@ -195,18 +271,22 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
             skin_w = skin_w.detach().requires_grad_(True)
             leaves.append(skin_w)
         # the start_lpips_iter gate (reference base.py:333-341)
-        lpips_on = state.step >= opts.start_lpips_iter
-        loss, aux = loss_fn(params, m2d, model.active, skin_w, batch,
-                            lpips_on)
+        lpips_on = step >= opts.start_lpips_iter
+        loss, aux = loss_fn(params, m2d, model.active[rows], skin_w, batch,
+                            lpips_on, model.active)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for g, x in zip(grads, leaves)]
-        g_params = GaussianParams(*grads[:len(params)])
         # loss averages the views: rescale to per-view-loss gradients, so
         # densify thresholds do not depend on the number of views
         g_m2d = grads[len(params)] * v
+        g_sw = grads[-1] if train_sw else None
+        g_params = GaussianParams(*grads[:len(params)])
+        do_stats = step < opts.densify_until_step
+        if mesh is not None:
+            loss, g_params, g_sw, g_m2d, aux = _reduce_over_mesh(
+                loss.detach(), g_params, g_sw, g_m2d, aux, do_stats)
 
-        step = state.step
         lrs = optim_mod.group_learning_rates(opts, step)
         new_params, new_opt = optim_mod.adam_update(
             model.params, g_params, state.opt, lrs, model.active)
@@ -216,7 +296,7 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
             # masked Adam, then clamp >= 0 and renormalise, so the LBS blend
             # stays a convex combination of bone transforms
             new_sw, new_skin_opt = optim_mod.array_adam_update(
-                model.skin_weights, grads[-1], state.skin_opt,
+                model.skin_weights, g_sw, state.skin_opt,
                 opts.skinning_lr, model.active, new_opt.step)
             new_sw = new_sw.clamp(min=0.0)
             norm = new_sw.sum(-1, keepdim=True)
@@ -229,11 +309,16 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
         posed = aux["posed_xyz"]
         outside = torch.zeros(n, dtype=torch.bool, device=posed.device)
         if in_seg_phase:
-            outside = points_outside_mask(
-                index_camera(batch["cameras"], 0), posed, batch["mask"][0],
-                keypoints=batch.get("keypoints") if articulated else None,
-                dilate=articulated, active=model.active,
-            )
+            # against the batch's first view, which the data group's first
+            # rank holds
+            if mesh is None or mesh.data_index == 0:
+                outside = points_outside_mask(
+                    index_camera(batch["cameras"], 0), posed,
+                    batch["mask"][0],
+                    keypoints=batch.get("keypoints") if articulated else None,
+                    dilate=articulated, active=model.active,
+                )
+            outside = broadcast(outside.to(torch.uint8), 0, d_group).bool()
         elif articulated and step % 100 == 0 and step >= opts.remove_seg_end:
             # distance-to-skeleton prune every 100 steps after the seg phase
             kp = batch["keypoints"]
@@ -249,9 +334,9 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
 
         # densification stats, skipped on mask-prune steps
         new_stats = state.stats
-        if step < opts.densify_until_step:
+        if do_stats:
             acc = new_stats
-            for i in range(v):
+            for i in range(g_m2d.shape[0]):
                 acc = densify_mod.accumulate_stats(
                     acc, g_m2d[i], aux["radii"][i], width, height)
             new_stats = densify_mod.DensifyStats(*(
@@ -260,12 +345,12 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
 
         metrics = dict(
             loss=loss,
-            psnr=loss_mod.psnr(aux["renders"][0].detach(), batch["rgb"][0]),
+            psnr=aux["psnr"],
             num_active=new_active.sum(),
             mask_pruned=outside.sum(),
             pair_overflow=aux["overflow"][:, 0].max(),
             pair_overflow_far=aux["overflow"][:, 1].max(),
-            max_radius=aux["radii"].max(),
+            max_radius=aux["max_radius"],
         )
         for k, val in aux["parts"].items():
             metrics[f"loss/{k}"] = val.detach().mean()

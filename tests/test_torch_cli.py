@@ -126,8 +126,8 @@ def test_a_jax_run_directory_resumes_in_the_port(tmp_path):
     (["trainer.mode=make_pose"], None),
     (["trainer.mode=validate_data"], "data"),
     (["dataset.kind=brics_dynamic"], "data"),
-    (["trainer.distributed=true"], "A8"),
-    (["trainer.data_axis=2", "trainer.batch_views=2"], "item 8"),
+    (["trainer.distributed=true"], "sharded"),
+    (["trainer.data_axis=2", "trainer.batch_views=2"], "sharded"),
 ], ids=["test", "render_path", "make_path", "make_pose", "validate_data",
         "brics", "distributed", "mesh"])
 def test_modes_not_ported_raise(overrides, what, tmp_path, request):
@@ -135,9 +135,27 @@ def test_modes_not_ported_raise(overrides, what, tmp_path, request):
     item. The four modes of the evaluation slice (what None) raised so
     until they were ported; now each runs on cli_out's hand and returns
     what it made. The data modes (what "data") raised until the BRICS
-    readers were ported; now each matches the JAX CLI on a capture."""
+    readers were ported; now each matches the JAX CLI on a capture. The
+    multi-device runs (what "sharded") raised until parallel/ was
+    ported: trainer.distributed=true outside a launcher trains alone, as
+    JAX's does, and trainer.data_axis=2 starts two ranks, of which only
+    the first writes the run directory."""
     argv = ["--device", "cpu", "--config-name", "HAND_GAUSSIAN", *COMMON,
             *HAND, *overrides, f"trainer.output_dir={tmp_path}"]
+    if what == "sharded":
+        monkeypatch = request.getfixturevalue("monkeypatch")
+        monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the ranks' threads
+        out = tmain.main(argv)
+        if "trainer.distributed=true" in overrides:
+            assert out.mesh is None and out.state.step == 8
+            return
+        assert out == 0
+        run = os.path.join(str(tmp_path), "manus_tpu", "synthetic", "test")
+        with open(os.path.join(run, "logs", "train_metrics.csv")) as f:
+            steps = [row.split(",")[0] for row in f.read().splitlines()[1:]]
+        assert steps == ["0", "7"]  # log_every's rows, written once
+        assert len(os.listdir(os.path.join(run, "checkpoints"))) == 2
+        return
     if what == "data":
         if "trainer.mode=validate_data" in overrides:
             _validate_data_matches_jax(tmp_path)

@@ -107,8 +107,9 @@ def test_cuda_backend_on_cpu_tensors_raises():
         composite.composite_fwd_cuda(
             torch.zeros(16, 128), torch.zeros(4, dtype=torch.int32),
             torch.zeros(4, dtype=torch.int32), 2, 2)
-    with pytest.raises(NotImplementedError):
+    # JAX falls back to owner on an unknown tile_shard_mode; the port raises
+    with pytest.raises(ValueError, match="unknown tile_shard_mode"):
         render_gaussians(torch.zeros(n, 3), torch.zeros(n, 6), torch.zeros(n, 3),
                          torch.zeros(n, 16, 3), torch.ones(n), cam,
-                         torch.zeros(3), config=RasterConfig(backend="torch"),
-                         tile_shard_mode="owner")
+                         torch.zeros(3), config=RasterConfig(
+                             backend="torch", tile_shard_mode="stripes"))
