@@ -383,8 +383,8 @@ class File:
 
 
 class Group:
-    """A group of an HDF5 file: its links by name, sorted as h5py lists
-    them."""
+    """A group of an HDF5 file: its links by name, ordered as h5py lists
+    them (by creation order where the group tracks it, else by name)."""
 
     def __init__(self, file: File, addr: int, name: str,
                  hdr: Optional[_Header] = None):
@@ -403,15 +403,21 @@ class Group:
             data = r.addr(heap + 8 + 2 * r.size_l)
             self._walk_group_btree(r, btree, data, links)
         info = self._hdr.find(MSG_LINK_INFO)
+        tracked = info is not None and bool(info[1] & 0x01)
         if info is not None:
-            pos = 2 + (8 if info[1] & 0x01 else 0)
+            pos = 2 + (8 if tracked else 0)
             fheap = int.from_bytes(info[pos:pos + r.size_o], "little")
             if fheap != UNDEF:
                 raise NotImplementedError(
                     "HDF5 dense link storage (fractal heap)")
+        order = {}
         for body in self._hdr.all(MSG_LINK):
-            name, addr = self._parse_link(body, r.size_o)
+            name, addr, order[name] = self._parse_link(body, r.size_o)
             links[name] = addr
+        # h5py lists a group that tracks creation order in that order,
+        # any other by name
+        if tracked:
+            return dict(sorted(links.items(), key=lambda kv: order[kv[0]]))
         return dict(sorted(links.items(),
                            key=lambda kv: kv[0].encode("utf-8")))
 
@@ -448,7 +454,9 @@ class Group:
         if flags & 0x08:
             ltype = d[pos]
             pos += 1
+        crt = 0
         if flags & 0x04:
+            crt = int.from_bytes(d[pos:pos + 8], "little")
             pos += 8
         if flags & 0x10:
             pos += 1
@@ -460,7 +468,7 @@ class Group:
         if ltype != 0:
             kind = "soft" if ltype == 1 else "external"
             raise NotImplementedError(f"HDF5 {kind} links ({name!r})")
-        return name, int.from_bytes(d[pos:pos + size_o], "little")
+        return name, int.from_bytes(d[pos:pos + size_o], "little"), crt
 
     @property
     def links(self) -> dict:

@@ -370,6 +370,29 @@ def test_dynamic_frame_index_and_split(dynamic_capture):
                                    sequences=["none"], device="cpu")
 
 
+def test_dynamic_cameras_in_creation_order_match_jax(tmp_path):
+    """K/ and extr/ written with track_order=True and the cameras created
+    out of name order: both loaders take h5py's (creation) order, so the
+    same view index is the same camera."""
+    tree = capture_tree(("0", "1"), n_cams=3)
+    order = ["cam002", "cam000", "cam001"]
+    order_of = ("K", "extr")
+    for group in order_of:
+        tree[group] = {name: tree[group][name] for name in order}
+    with h5py.File(tmp_path / "a.hdf5", "w") as f:
+        for name, value in tree.items():
+            _h5py_write(f.create_group(name, track_order=name in order_of),
+                        value)
+    want = jbrics.BricsDynamicDataset(str(tmp_path), W, H, split_ratio=0)
+    got = tbrics.BricsDynamicDataset(str(tmp_path), W, H, split_ratio=0,
+                                     device="cpu")
+    assert got.cam_names == want.cam_names == order
+    _same_cameras(got.cameras, want.cameras)
+    g, w = got.get_batch(1, [0, 2]), want.get_batch(1, [0, 2])
+    np.testing.assert_allclose(g["rgb"], w["rgb"], atol=ATOL)
+    got.close()
+
+
 # ---------------------------------------------------------------------------
 # batch assembly: C++ against numpy against the JAX package's
 

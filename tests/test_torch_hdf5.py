@@ -145,6 +145,22 @@ def test_latest_libver_compact_links(tmp_path):
         _same_tree(want, got)
 
 
+@pytest.mark.parametrize("libver", ["earliest", "latest"])
+def test_track_order_group_lists_in_creation_order(libver, tmp_path):
+    """A compact group that tracks creation order (track_order=True) lists
+    its members in that order in h5py, not by name."""
+    path = tmp_path / "track.h5"
+    with h5py.File(path, "w", libver=libver) as f:
+        g = f.create_group("g", track_order=True)
+        for name in ("cam2", "cam0", "cam1"):
+            g[name] = np.arange(2)
+        f.create_group("by_name")["b"] = 1
+        f["by_name"]["a"] = 2
+    with h5py.File(path, "r") as want, hdf5.File(path) as got:
+        assert list(want["g"].keys()) == ["cam2", "cam0", "cam1"]
+        _same_tree(want, got)
+
+
 @pytest.mark.parametrize("form", ["dense_links", "lzf", "v4_chunk_index",
                                   "compound", "soft_link"])
 def test_unsupported_forms_raise(form, tmp_path):
