@@ -159,8 +159,18 @@ Phases, each of which exits non-zero on failure:
      lpips_distance with its image gradient against the plain chain on
      the CPU; OBJ_GAUSSIAN on the static capture (BRICS_OBJ_STEPS steps
      over the device image cache): the loss falls and validation runs on
-     the 2 held-out cameras. The captures, checkpoints and PLYs are
-     deleted afterwards.
+     the 2 held-out cameras. Then the committed fixtures that h5py wrote
+     (tests/data/hdf5_forms/, scripts/torch_hdf5_fixtures.py): (a) every
+     file read by the port's reader equal to manifest.json (key order,
+     shapes, dtypes, value digests), the lzf decoder's MB/s on the
+     capture's crops; (b) validate_data exits 0 on its capture/ (libver
+     "latest", creation order, dense groups, lzf and gzip + shuffle +
+     fletcher32 crops); (c) HAND_GAUSSIAN on capture/ through the CLI as
+     above but for FORMS_STEPS steps with LPIPS from FORMS_LPIPS_FROM:
+     the loss falls, the backend is cuda, the launches are what the run
+     implies, and the batch checks above on one batch; (d) a 1280x720
+     view's get_batch ms from capture/ beside the write_tree capture's.
+     The captures, checkpoints and PLYs are deleted afterwards.
 
  13. parallel: the sharded training path (manus_tpu_torch/parallel/).
      (a) The composite kernels' tile-id form on the bench scene's view at
@@ -218,7 +228,7 @@ from manus_tpu_torch.config import (
     hand_config,
     load_config_snapshot,
 )
-from manus_tpu_torch.data import hdf5
+from manus_tpu_torch.data import hdf5, hdf5_filters
 from manus_tpu_torch.data import prefetch as prefetch_mod
 from manus_tpu_torch.data.brics import BricsDynamicDataset, BricsStaticDataset
 from manus_tpu_torch.data.synthetic import (
@@ -496,6 +506,9 @@ BRICS_STATIC_VIEWS, BRICS_MARGIN, BRICS_GT_PER_BONE = 53, 16, 400
 BRICS_CAPACITY, BRICS_SAMPLE_SIZE = 131072, 4369
 BRICS_STEPS, BRICS_LPIPS_FROM, BRICS_OBJ_STEPS = 150, 50, 100
 BRICS_TIMED_BATCHES = 20
+# the h5py-written fixtures and their capture (scripts/torch_hdf5_fixtures)
+FORMS_DIR = os.path.join("tests", "data", "hdf5_forms")
+FORMS_STEPS, FORMS_LPIPS_FROM, FORMS_LZF_REPS = 30, 10, 20
 # query rows of each direction held to float64; the baseline mesh (an
 # icosphere of 162 vertices, 10,242 after the baseline's 3 subdivisions;
 # MANO's 778 give 49,000) and its posed frames (the CPU's contacts, its
@@ -2612,17 +2625,18 @@ def render_phase(dev, hand_run_dir, val_psnr):
                    for k, v in engines.items()})
 
 
-def _render_rgba(means, cov6, colors, opacity, cam, dev):
-    """A render through the kernels, un-premultiplied, as RGBA uint8
-    [H, W, 4] on the card (alpha: 1 - the final transmittance), with no
-    pair budget (a budget cut truncates the frame); checks that binning
-    dropped no pair but the farthest of a tile over the 4,096-pair cap."""
+def render_rgba(means, cov6, colors, opacity, cam, dev, backend="cuda"):
+    """A render through the kernels (backend "torch": the plain
+    composite, on the CPU), un-premultiplied, as RGBA uint8 [H, W, 4]
+    (alpha: 1 - the final transmittance), with no pair budget (a budget
+    cut truncates the frame); checks that binning dropped no pair but the
+    farthest of a tile over the 4,096-pair cap."""
     n = means.shape[0]
     with torch.no_grad():
         out = render_gaussians(
             means, cov6, means, torch.zeros(n, 16, 3, device=dev), opacity,
             cam, torch.zeros(3, device=dev), colors_precomp=colors,
-            config=RasterConfig(backend="cuda", pair_budget_factor=0))
+            config=RasterConfig(backend=backend, pair_budget_factor=0))
         dropped = int(out.overflow) - int(out.overflow_far)
         check(dropped == 0, f"brics capture: a render dropped {dropped} "
               "pairs short of the per-tile cap")
@@ -2632,18 +2646,18 @@ def _render_rgba(means, cov6, colors, opacity, cam, dev):
             torch.uint8)
 
 
-def _crop(rgba):
-    """The bbox [xmin, ymin, xmax, ymax] of the lit pixels plus
-    BRICS_MARGIN, clipped to the frame, and the crop as numpy."""
+def crop_rgba(rgba, margin=BRICS_MARGIN):
+    """The bbox [xmin, ymin, xmax, ymax] of the lit pixels plus margin
+    px, clipped to the frame, and the crop as numpy."""
     lit = rgba[..., 3] > 0
     rows = torch.nonzero(lit.any(1)).flatten().tolist()
     cols = torch.nonzero(lit.any(0)).flatten().tolist()
     h, w = lit.shape
     if not rows:
         rows, cols = [0], [0]
-    x0, y0 = max(cols[0] - BRICS_MARGIN, 0), max(rows[0] - BRICS_MARGIN, 0)
-    x1 = min(cols[-1] + 1 + BRICS_MARGIN, w)
-    y1 = min(rows[-1] + 1 + BRICS_MARGIN, h)
+    x0, y0 = max(cols[0] - margin, 0), max(rows[0] - margin, 0)
+    x1 = min(cols[-1] + 1 + margin, w)
+    y1 = min(rows[-1] + 1 + margin, h)
     return (np.asarray([x0, y0, x1, y1], np.int64),
             rgba[y0:y1, x0:x1].cpu().numpy())
 
@@ -2694,7 +2708,7 @@ def brics_dynamic_capture(root, dev):
                 t(seq["pose_matrixs"][f]), t(rest)))
             images, bbox = {}, {}
             for m, cam in zip(names, cams):
-                bbox[m], images[m] = _crop(_render_rgba(
+                bbox[m], images[m] = crop_rgba(render_rgba(
                     sk.posed_xyz, sk.posed_cov, colors, opacity, cam, dev))
                 nbytes += images[m].nbytes
                 count += 1
@@ -2741,7 +2755,7 @@ def brics_static_capture(root, dev):
             i, BRICS_W, BRICS_H, repr(K[0, 0].item()), repr(K[1, 1].item()),
             repr(K[0, 2].item()), repr(K[1, 2].item()), 0, 0, 0, 0, name,
             *map(repr, q), *map(repr, tv)])))
-        rgba = _render_rgba(t(means), t(obj["cov6"] * k * k),
+        rgba = render_rgba(t(means), t(obj["cov6"] * k * k),
                             t(obj["colors"]), t(obj["opacity"]), cam, dev)
         dump_image(rgba.cpu().numpy(), os.path.join(
             root, "images", "refined_seg", name, "000000.png"))
@@ -2774,6 +2788,22 @@ def _loss_falls(run_dir, tag):
           f"{loss[-1]:.6f} at step {rows[-1][0]}")
     check(all(math.isfinite(x) for x in loss) and loss[-1] < loss[0],
           f"brics {tag}: the loss did not fall: {loss}")
+
+
+def _loss_falls_in_segments(run_dir, tag, lpips_from, k=5):
+    """A short run logged every step: before and after LPIPS joins the
+    loss at lpips_from, the mean of each segment's last k losses below
+    that of its first k (single steps differ by the view they draw)."""
+    _, rows = _csv_rows(os.path.join(run_dir, "logs", "train_metrics.csv"))
+    for seg in ([r for r in rows if int(r[0]) < lpips_from],
+                [r for r in rows if int(r[0]) >= lpips_from]):
+        loss = [float(r[1]) for r in seg]
+        first, last = statistics.mean(loss[:k]), statistics.mean(loss[-k:])
+        print(f"brics {tag}: steps {seg[0][0]}-{seg[-1][0]}: mean loss of "
+              f"the first {k} {first:.6f} -> of the last {k} {last:.6f}")
+        check(all(math.isfinite(x) for x in loss) and len(loss) >= 2 * k
+              and last < first, f"brics {tag}: the loss did not fall: "
+              f"{loss}")
 
 
 def brics_batch_checks(tr, dev):
@@ -2902,8 +2932,16 @@ def _brics_runs(dev, dyn, static):
     check(sds.num_views == BRICS_STATIC_VIEWS - 12 - 2,
           f"brics: {sds.num_views} static train cameras")
     check(asm_err <= 1e-6, "brics: the C++ assembly differs from numpy")
+    del sds
+    forms_get_ms = brics_forms_read(dev)
+    write_tree_ms = _get_batch_ms(ds)
+    print(f"brics get_batch of one {BRICS_W}x{BRICS_H} view, median of "
+          f"{BRICS_TIMED_BATCHES} random views: {forms_get_ms:.3f} ms from "
+          f"{FORMS_DIR}/capture (h5py, libver latest, lzf and gzip + "
+          f"shuffle + fletcher32 crops), {write_tree_ms:.3f} ms from the "
+          f"hdf5.write_tree capture (contiguous crops)")
     ds.close()
-    del ds, sds
+    del ds
 
     # HAND_GAUSSIAN on the dynamic capture, every batch from HDF5
     calls = prefetch_mod.assemble_batch_native.calls
@@ -2984,7 +3022,8 @@ def _brics_runs(dev, dyn, static):
     _loss_falls(otr.out_dir, "object")
     obj_dir = otr.out_dir
     del otr
-    for run in (hand_dir, obj_dir):  # keep configs, CSVs and an image
+    forms_dir = brics_forms_train(dev)
+    for run in (hand_dir, obj_dir, forms_dir):  # configs, CSVs, an image
         for sub in ("checkpoints", os.path.join("results", "val_results",
                                                 "gaussians")):
             shutil.rmtree(os.path.join(run, sub), ignore_errors=True)
@@ -2994,6 +3033,123 @@ def _brics_runs(dev, dyn, static):
             os.remove(os.path.join(img_dir, name))
     print(f"brics phase: {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def _get_batch_ms(ds, seed=15):
+    """The median ms of get_batch on one view over BRICS_TIMED_BATCHES
+    random (frame, view) pairs."""
+    rng = np.random.RandomState(seed)
+    ms = []
+    for _ in range(BRICS_TIMED_BATCHES):
+        f, v = rng.randint(ds.num_frames), rng.randint(ds.num_views)
+        t1 = time.perf_counter()
+        ds.get_batch(f, [v])
+        ms.append((time.perf_counter() - t1) * 1e3)
+    return statistics.median(ms)
+
+
+def brics_forms_read(dev):
+    """Phase 12 (a) and (d): every fixture read by the port's reader
+    against the manifest h5py's reads made, the lzf decoder's rate on the
+    capture's crops; returns capture/'s get_batch ms."""
+    from scripts.torch_hdf5_fixtures import FORMS, manifest
+
+    with open(os.path.join(FORMS_DIR, "manifest.json")) as f:
+        want = json.load(f)
+    t0 = time.perf_counter()
+    ndata = 0
+    for name, records in sorted(want.items()):
+        with hdf5.File(os.path.join(FORMS_DIR, name)) as h:
+            got = manifest(h)
+        bad = sorted(k for k in set(got) | set(records)
+                     if got.get(k) != records.get(k))
+        check(not bad, f"brics forms: {name} differs from the manifest at "
+              f"{bad[:5]}")
+        ndata += sum("sha256" in r for r in records.values())
+    read_s = time.perf_counter() - t0
+    # the lzf chunks of one action file, as the reader meets them
+    chunks, real = [], hdf5_filters.lzf_decompress
+
+    def keep(data, size):
+        chunks.append((data, size))
+        return real(data, size)
+
+    hdf5_filters.lzf_decompress = keep
+    try:
+        with hdf5.File(os.path.join(FORMS_DIR, "capture",
+                                    "grasp_a.hdf5")) as h:
+            manifest(h)
+    finally:
+        hdf5_filters.lzf_decompress = real
+    out_bytes = sum(size for _, size in chunks)
+    t1 = time.perf_counter()
+    for _ in range(FORMS_LZF_REPS):
+        for data, size in chunks:
+            real(data, size)
+    lzf_s = (time.perf_counter() - t1) / FORMS_LZF_REPS
+    print(f"brics forms: {len(want)} files of {FORMS_DIR} ({ndata} datasets; "
+          f"forms {sorted(FORMS)} and capture/) read by the port equal to "
+          f"h5py's manifest in {read_s:.3f} s; lzf (csrc/hdf5_filters.cpp, "
+          f"host) {len(chunks)} chunks, {out_bytes / 1e6:.3f} MB out in "
+          f"{lzf_s * 1e3:.3f} ms: {out_bytes / 1e6 / lzf_s:.1f} MB/s")
+    check(len(chunks) > 0, "brics forms: no lzf chunk in capture/")
+    ds = BricsDynamicDataset(os.path.join(FORMS_DIR, "capture"), BRICS_W,
+                             BRICS_H, device=dev)
+    try:
+        return _get_batch_ms(ds)
+    finally:
+        ds.close()
+
+
+def brics_forms_train(dev):
+    """Phase 12 (b) and (c) on the fixtures' capture/; returns the run's
+    directory."""
+    capture = os.path.join(FORMS_DIR, "capture")
+    rc, last = _validate("brics_dynamic", capture, "HAND_GAUSSIAN")
+    print(f"brics forms validate_data on {capture}: exit {rc}; {last}")
+    check(rc == 0, f"brics forms: validate_data finds {rc} errors")
+    calls = prefetch_mod.assemble_batch_native.calls
+    tr, launches, _, peak, wall = _run_cli([
+        "--config-name", "HAND_GAUSSIAN", "dataset.kind=brics_dynamic",
+        f"dataset.root={capture}", "dataset.subject=brics_forms",
+        f"dataset.width={BRICS_W}", f"dataset.height={BRICS_H}",
+        "dataset.num_frames=4", f"capacity={BRICS_CAPACITY}",
+        f"dataset.sample_size={BRICS_SAMPLE_SIZE}",
+        "trainer.device_cache_mb=0", f"trainer.max_steps={FORMS_STEPS}",
+        "trainer.val_every=0", "trainer.checkpoint_every=0",
+        "trainer.log_every=1", f"model.start_lpips_iter={FORMS_LPIPS_FROM}",
+        "loss.lpips_random_in_loss=true", f"trainer.output_dir={BRICS_DIR}",
+        "trainer.exp_name=forms"])
+    calls = prefetch_mod.assemble_batch_native.calls - calls
+    n_lpips = FORMS_STEPS - FORMS_LPIPS_FROM
+    n_eval = launches["composite_fwd"] - FORMS_STEPS
+    print(f"brics forms hand: {FORMS_STEPS} steps through the CLI in "
+          f"{wall:.1f} s, {int(tr.state.model.active.sum())} of "
+          f"{BRICS_CAPACITY} slots live, {tr.dataset.num_frames} train "
+          f"frames x {tr.dataset.num_views} cameras "
+          f"({tr.dataset.cam_names[:3]}... in creation order) at "
+          f"{tr.dataset.width}x{tr.dataset.height}; fit loop median "
+          f"{_step_ms(tr, WARMUP, FORMS_LPIPS_FROM):.3f} ms/step before step "
+          f"{FORMS_LPIPS_FROM} and "
+          f"{_step_ms(tr, FORMS_LPIPS_FROM + WARMUP, None):.3f} with LPIPS; "
+          f"peak {peak:.1f} MiB; {calls} C++ assemblies; launches {launches}")
+    check(tr.cfg.raster.backend == "cuda" and tr.device.type == "cuda",
+          f"brics forms: backend {tr.cfg.raster.backend} on {tr.device}")
+    check(tr._device_cache is None and calls >= FORMS_STEPS,
+          f"brics forms: {calls} assemblies for {FORMS_STEPS} steps")
+    _loss_falls_in_segments(tr.out_dir, "forms hand", FORMS_LPIPS_FROM)
+    want_n = {"composite_bwd": FORMS_STEPS, "conv3x3_layout": 26 * n_lpips,
+              "conv3x3_layout_dx": 13 * n_lpips,
+              "lpips_head_fwd": 5 * n_lpips, "lpips_head_bwd": 5 * n_lpips,
+              "conv3x3": 0}
+    for name, n in want_n.items():
+        check(launches[name] == n, f"brics forms: {name} launched "
+              f"{launches[name]} times, not {n}")
+    check(n_eval >= 1, f"brics forms: {n_eval} eval renders")
+    brics_batch_checks(tr, dev)
+    tr.dataset.close()
+    tr.val_dataset.close()
+    return tr.out_dir
 
 
 # Phase 13 (parallel): the sharded training path of parallel/.

@@ -1,24 +1,40 @@
 """A read-only HDF5 reader in numpy and zlib, and a small writer.
 
 The BRICS captures are HDF5 files, and the card's machine has no h5py.
-`File` reads the part of the format that h5py writes for such captures,
-through the part of h5py's API that the loaders and the validator use:
+`File` reads what h5py writes, through the part of h5py's API that the
+loaders and the validator use, and gives what h5py gives:
 
-- groups: keys, items, get, `in`, `[name]` and `["a/b"]`, iteration,
-  len;
+- groups: keys, items, get, `in`, `[name]` and `["a/b"]` (`["/a"]` from
+  the root), iteration, len, in h5py's order (by creation order where the
+  group tracks it, else by name);
 - datasets: shape, dtype, size, `[()]`, `[:]` (the whole array; any
-  other index is applied to it), and offset() of contiguous data.
+  other index is applied to it), and offset() of contiguous data;
+- committed datatypes as members (`Datatype`, with its dtype).
 
-Supported: superblock versions 0-3; object headers v1 and v2 with
-continuation blocks; groups as symbol tables (v1 B-tree, symbol nodes,
-local heap) and as compact link messages; contiguous, compact and chunked
-(v1 B-tree) data layouts; the deflate, shuffle and fletcher32 filters;
-integers and floats of either byte order, fixed-length strings and
-variable-length strings (global heap); scalar and simple dataspaces; the
-fill value where data was never written. Anything else raises
-NotImplementedError naming it: dense link storage (fractal heap),
-layout-v4 chunk indexes, other filters, compound and other types, shared
-messages, soft and external links.
+Supported: superblock versions 0-3, also after a user block; object
+headers v1 and v2 with continuation blocks; groups as symbol tables (v1
+B-tree, symbol nodes, local heap), as compact link messages, and in dense
+storage (a fractal heap indexed by a v2 B-tree); hard, soft and external
+links (an external file opens relative to the linking file's directory
+and stays open with it); contiguous, compact and chunked data, the chunks
+indexed by a v1 B-tree or by a layout-v4 index (single chunk, implicit,
+fixed array, extensible array, v2 B-tree); the deflate, shuffle,
+fletcher32, lzf, szip, scaleoffset and nbit filters
+(data/hdf5_filters.py);
+integers (any precision and bit offset), bitfields, floats (IEEE and x87
+long double) of either byte order, fixed- and variable-length strings,
+opaque, compound (h5py's complex too), enum (h5py's bool too), array and
+variable-length sequence types, and datatypes shared with a committed
+one; scalar, simple and null dataspaces (a null one reads as `Empty`, as
+h5py.Empty); the fill value where data was never written. Every checksum
+the format stores (v2 object headers and their continuation blocks, the
+v2 superblock, fractal heap, v2 B-tree, fixed and extensible array
+blocks, the fletcher32 filter) is verified; a mismatch raises OSError.
+
+Refused, with NotImplementedError naming the form: messages in a
+shared-message table (SOHM), object and region references, filters
+other than those above, virtual datasets, huge fractal heap objects,
+and time types.
 
 The file is read through one read-only mmap, with no shared seek
 position, so several threads may read one File (the trainer's prefetch
@@ -33,32 +49,34 @@ from __future__ import annotations
 import mmap
 import os
 import struct
-import zlib
 from typing import Optional
 
 import numpy as np
 
+from manus_tpu_torch.data import hdf5_filters as filters_mod
+from manus_tpu_torch.data import hdf5_index as index
+
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
-UNDEF = 0xFFFFFFFFFFFFFFFF
+UNDEF = index.UNDEF
 
 # object header message types
 MSG_NIL, MSG_DATASPACE, MSG_LINK_INFO, MSG_DATATYPE = 0x0, 0x1, 0x2, 0x3
 MSG_FILL_OLD, MSG_FILL, MSG_LINK, MSG_LAYOUT = 0x4, 0x5, 0x6, 0x8
 MSG_FILTERS, MSG_CONTINUATION, MSG_SYMBOL_TABLE = 0xB, 0x10, 0x11
 
-FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32 = 1, 2, 3
-
-_TYPE_CLASSES = {2: "time types", 4: "bitfield types", 5: "opaque types",
-                 6: "compound types", 7: "reference types",
-                 8: "enum types", 10: "array types"}
+# the most soft links one lookup follows (HDF5's default H5P nlinks)
+MAX_SOFT_HOPS = 16
 
 
 class _Reader:
-    """Little-endian fields of the mapped file at absolute offsets."""
+    """Little-endian fields of the mapped file at absolute offsets; every
+    address the file stores is relative to `base` (the superblock's base
+    address, past a user block) and comes back absolute, UNDEF as is."""
 
-    def __init__(self, buf, size_o: int = 8, size_l: int = 8):
+    def __init__(self, buf, size_o: int = 8, size_l: int = 8, base: int = 0):
         self.buf = buf
-        self.size_o, self.size_l = size_o, size_l
+        self.size_o, self.size_l, self.base = size_o, size_l, base
+        self._undef = (1 << (8 * size_o)) - 1
 
     def uint(self, pos: int, n: int) -> int:
         return int.from_bytes(self.buf[pos:pos + n], "little")
@@ -66,8 +84,13 @@ class _Reader:
     def bytes(self, pos: int, n: int) -> bytes:
         return bytes(self.buf[pos:pos + n])
 
+    def addr_in(self, body, pos: int) -> int:
+        """The address stored in `body` at pos."""
+        v = int.from_bytes(body[pos:pos + self.size_o], "little")
+        return UNDEF if v == self._undef else v + self.base
+
     def addr(self, pos: int) -> int:
-        return self.uint(pos, self.size_o)
+        return self.addr_in(self.buf, pos)
 
     def length(self, pos: int) -> int:
         return self.uint(pos, self.size_l)
@@ -77,106 +100,282 @@ class _Reader:
             raise OSError(f"HDF5: no {what} signature at {pos}")
 
 
+class Empty:
+    """The value of a dataset with a null dataspace (h5py.Empty)."""
+
+    shape = size = None
+
+    def __init__(self, dtype):
+        self.dtype = np.dtype(dtype)
+
+    def __eq__(self, other):
+        return isinstance(other, Empty) and other.dtype == self.dtype
+
+    def __repr__(self):
+        return f"Empty(dtype={self.dtype!r})"
+
+
 # ---------------------------------------------------------------------------
-# messages
+# dataspaces and datatypes
 
 
-def _parse_dataspace(d: bytes, size_l: int) -> tuple:
-    version, rank = d[0], d[1]
+def _parse_dataspace(d: bytes, size_l: int):
+    """(shape, maxshape) of a dataspace message, None in maxshape for an
+    unlimited dimension; (None, None) for a null dataspace."""
+    version, rank, flags = d[0], d[1], d[2]
     if version == 1:
         pos = 8
     elif version == 2:
         if d[3] == 2:
-            raise NotImplementedError("HDF5 null dataspaces")
+            return None, None
         pos = 4
     else:
         raise NotImplementedError(f"HDF5 dataspace message version {version}")
-    return tuple(int.from_bytes(d[pos + i * size_l:pos + (i + 1) * size_l],
-                                "little") for i in range(rank))
+
+    def dims(p):
+        return tuple(int.from_bytes(d[p + i * size_l:p + (i + 1) * size_l],
+                                    "little") for i in range(rank))
+
+    shape = dims(pos)
+    if not flags & 0x01:
+        return shape, shape
+    return shape, tuple(None if m == (1 << 8 * size_l) - 1 else m
+                        for m in dims(pos + rank * size_l))
 
 
 class _Type:
-    """A parsed datatype: numpy dtype of the element, and for a
-    variable-length string the stored element size (vlen)."""
+    """A parsed datatype: the numpy dtype h5py gives for it, its size in
+    the file, its size in HDF5's memory layout (which sets a compound's
+    offsets in h5py's dtype: a variable-length string takes a pointer's 8
+    bytes there, a sequence 16), and `decode`, which turns stored elements
+    ([n, size] uint8) into values ([n] and any array dimensions), or None
+    where the stored bytes are the values."""
 
-    def __init__(self, dtype: np.dtype, vlen: bool = False, size: int = 0):
-        self.dtype, self.vlen, self.size = dtype, vlen, size or dtype.itemsize
+    def __init__(self, dtype: np.dtype, size: int, decode=None,
+                 mem_size: Optional[int] = None):
+        self.dtype, self.size, self.decode = dtype, size, decode
+        self.mem_size = size if mem_size is None else mem_size
 
-
-def _parse_datatype(d: bytes, size_o: int) -> _Type:
-    cls = d[0] & 0x0F
-    bits = d[1] | (d[2] << 8) | (d[3] << 16)
-    size = int.from_bytes(d[4:8], "little")
-    if cls in (0, 1):  # fixed point, floating point
-        order = ">" if bits & 1 else "<"
-        if cls == 1 and bits & 0x40:
-            raise NotImplementedError("HDF5 VAX-order floats")
-        if cls == 0:
-            kind = "i" if bits & 0x08 else "u"
-        else:
-            kind = "f"
-        if size not in ((1, 2, 4, 8) if cls == 0 else (2, 4, 8)):
-            raise NotImplementedError(f"HDF5 {size}-byte numbers")
-        return _Type(np.dtype(f"{order}{kind}{size}"))
-    if cls == 3:  # fixed-length string
-        return _Type(np.dtype(f"S{size}"))
-    if cls == 9:  # variable length
-        if bits & 0x0F != 1:
-            raise NotImplementedError("HDF5 variable-length sequences")
-        return _Type(np.dtype(object), vlen=True, size=4 + size_o + 4)
-    raise NotImplementedError(
-        f"HDF5 {_TYPE_CLASSES.get(cls, f'datatype class {cls}')}")
+    def values(self, raw: np.ndarray, file) -> np.ndarray:
+        if self.decode is not None:
+            return self.decode(raw, file)
+        n = raw.shape[0]
+        raw = np.ascontiguousarray(raw)
+        sub = self.dtype.subdtype
+        if sub is not None:
+            return raw.view(sub[0]).reshape((n,) + sub[1])
+        return raw.view(self.dtype).reshape(n)
 
 
-def _parse_filters(d: bytes) -> list:
-    """[(filter id, flags, client data)] of a filter pipeline message."""
-    version, n = d[0], d[1]
-    pos = 8 if version == 1 else 2
-    if version not in (1, 2):
-        raise NotImplementedError(f"HDF5 filter pipeline version {version}")
-    out = []
-    for _ in range(n):
-        fid = int.from_bytes(d[pos:pos + 2], "little")
-        pos += 2
-        name_len = 0
-        if version == 1 or fid >= 256:
-            name_len = int.from_bytes(d[pos:pos + 2], "little")
-            pos += 2
-        flags, nvals = struct.unpack_from("<HH", d, pos)
-        pos += 4
-        if version == 1:
-            name_len = (name_len + 7) & ~7
-        pos += name_len
-        vals = struct.unpack_from(f"<{nvals}I", d, pos)
-        pos += 4 * nvals
-        if version == 1 and nvals % 2:
-            pos += 4
-        if fid not in (FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32):
-            names = {4: "szip", 5: "nbit", 6: "scaleoffset", 32000: "lzf",
-                     32001: "blosc", 32004: "lz4", 32015: "zstd"}
-            raise NotImplementedError(
-                f"HDF5 filter {fid} ({names.get(fid, 'unknown')})")
-        out.append((fid, flags, vals))
+def _name_at(d: bytes, pos: int, padded: bool):
+    """A null-terminated name at pos and the position after it (padded to
+    a multiple of 8 bytes, terminator included, where `padded`)."""
+    end = d.index(b"\0", pos)
+    return d[pos:end], (pos + (end - pos) // 8 * 8 + 8 if padded
+                        else end + 1)
+
+
+def _int_decode(dt: np.dtype, offset: int, precision: int, signed: bool):
+    """Integers of `precision` bits above bit `offset` of their storage,
+    sign-extended where signed, as HDF5 converts them to the full width."""
+    udt = np.dtype(f"{dt.byteorder}u{dt.itemsize}")
+    bits = 8 * dt.itemsize
+    mask = (1 << precision) - 1
+
+    def decode(raw, file):
+        u = np.ascontiguousarray(raw).view(udt).reshape(-1).astype(np.uint64)
+        v = (u >> np.uint64(offset)) & np.uint64(mask)
+        if signed and precision < bits:
+            neg = (v >> np.uint64(precision - 1)) & np.uint64(1)
+            v = v | (neg * np.uint64(((1 << bits) - 1) ^ mask))
+        return v.astype(f"<u{dt.itemsize}").view(
+            f"<{dt.kind}{dt.itemsize}").astype(dt)
+
+    return decode
+
+
+def _vlen_records(raw, file):
+    """(length, global heap address, object index) of every stored
+    variable-length element."""
+    o = file._r.size_o
+    for rec in np.ascontiguousarray(raw):
+        b = rec.tobytes()
+        n = int.from_bytes(b[:4], "little")
+        yield n, file._r.addr_in(b, 4), int.from_bytes(b[4 + o:8 + o],
+                                                       "little")
+
+
+def _vlen_string_decode(raw, file):
+    out = np.empty(raw.shape[0], object)
+    for i, (n, addr, idx) in enumerate(_vlen_records(raw, file)):
+        out[i] = file._gheap_object(addr, idx)[:n] if n else b""
     return out
 
 
-def _unfilter(data: bytes, filters: list, mask: int) -> bytes:
-    for i in range(len(filters) - 1, -1, -1):
-        if mask & (1 << i):
-            continue
-        fid, _, vals = filters[i]
-        if fid == FILTER_DEFLATE:
-            data = zlib.decompress(data)
-        elif fid == FILTER_SHUFFLE:
-            size = vals[0] if vals else 1
-            n = len(data) // size
-            if size > 1 and n:
-                body = np.frombuffer(data, np.uint8, n * size)
-                data = (body.reshape(size, n).T.tobytes()
-                        + data[n * size:])
-        else:  # fletcher32: the checksum is the last 4 bytes
-            data = data[:-4]
-    return data
+def _vlen_sequence_decode(base: _Type):
+    def decode(raw, file):
+        out = np.empty(raw.shape[0], object)
+        for i, (n, addr, idx) in enumerate(_vlen_records(raw, file)):
+            data = b"" if not n else \
+                file._gheap_object(addr, idx)[:n * base.size]
+            elems = np.frombuffer(data, np.uint8).reshape(n, base.size)
+            out[i] = base.values(elems, file)
+        return out
+
+    return decode
+
+
+def _compound(d: bytes, pos: int, version: int, bits: int, size: int, r):
+    members = []  # (name, file offset, type)
+    for _ in range(bits & 0xFFFF):
+        name, pos = _name_at(d, pos, version < 3)
+        if version == 1:  # an old-style array member carries its dims
+            off, ndims = int.from_bytes(d[pos:pos + 4], "little"), d[pos + 4]
+            dims = struct.unpack_from("<4I", d, pos + 16)[:ndims]
+            mt, pos = _parse_datatype(d, pos + 32, r)
+            if ndims:
+                mt = _array_of(mt, dims)
+        else:
+            w = 4 if version == 2 else (max(size, 1).bit_length() - 1) // 8 + 1
+            off = int.from_bytes(d[pos:pos + w], "little")
+            mt, pos = _parse_datatype(d, pos + w, r)
+        members.append((name.decode("utf-8"), off, mt))
+    members.sort(key=lambda m: m[1])
+    names = [m[0] for m in members]
+    types = [m[2] for m in members]
+    # h5py's complex: r and i, floats of one type
+    if (names == ["r", "i"] and types[0].dtype == types[1].dtype
+            and types[0].dtype.kind == "f"):
+        dt = types[0].dtype
+        cdt = np.dtype(f"{dt.byteorder}c{2 * dt.itemsize}")
+        if [m[1] for m in members] == [0, dt.itemsize] and \
+                size == cdt.itemsize:
+            return _Type(cdt, size), pos
+
+        def complex_decode(raw, file):
+            re = types[0].values(raw[:, members[0][1]:][:, :dt.itemsize],
+                                 file)
+            im = types[1].values(raw[:, members[1][1]:][:, :dt.itemsize],
+                                 file)
+            out = np.empty(raw.shape[0], cdt)
+            out.real, out.imag = re, im
+            return out
+
+        return _Type(cdt, size, complex_decode), pos
+    # offsets in HDF5's memory layout (H5T__set_loc): a member that
+    # changes size there shifts every one after it
+    mem_offs, shift = [], 0
+    for _, off, mt in members:
+        mem_offs.append(off + shift)
+        shift += mt.mem_size - mt.size
+    dt = np.dtype({"names": names, "formats": [t.dtype for t in types],
+                   "offsets": mem_offs, "itemsize": size + shift})
+    if shift == 0 and all(t.decode is None for t in types):
+        return _Type(dt, size), pos
+
+    def decode(raw, file):
+        out = np.zeros(raw.shape[0], dt)
+        for name, off, mt in members:
+            out[name] = mt.values(raw[:, off:off + mt.size], file)
+        return out
+
+    return _Type(dt, size, decode, size + shift), pos
+
+
+def _array_of(base: _Type, dims) -> _Type:
+    dims = tuple(int(x) for x in dims)
+    count = int(np.prod(dims, dtype=np.int64))
+    dt = np.dtype((base.dtype, dims))
+    decode = None
+    if base.decode is not None:
+        def decode(raw, file):
+            n = raw.shape[0]
+            vals = base.values(np.ascontiguousarray(raw).reshape(
+                n * count, base.size), file)
+            return vals.reshape((n,) + dims + vals.shape[1:])
+    return _Type(dt, base.size * count, decode, base.mem_size * count)
+
+
+def _parse_datatype(d: bytes, pos: int, r):
+    """The datatype at d[pos:] and the position after it."""
+    cls, version = d[pos] & 0x0F, d[pos] >> 4
+    bits = d[pos + 1] | (d[pos + 2] << 8) | (d[pos + 3] << 16)
+    size = int.from_bytes(d[pos + 4:pos + 8], "little")
+    p = pos + 8
+    order = ">" if bits & 1 else "<"
+    if cls in (0, 4):  # fixed point, bitfield
+        offset, precision = struct.unpack_from("<HH", d, p)
+        if size not in (1, 2, 4, 8):
+            raise NotImplementedError(f"HDF5 {size}-byte integers")
+        signed = cls == 0 and bool(bits & 0x08)
+        dt = np.dtype(f"{order}{'i' if signed else 'u'}{size}")
+        decode = None if (offset, precision) == (0, 8 * size) else \
+            _int_decode(dt, offset, precision, signed)
+        return _Type(dt, size, decode), p + 4
+    if cls == 1:  # floating point
+        if bits & 0x40:
+            raise NotImplementedError("HDF5 VAX-order floats")
+        if size == 16 and np.dtype(np.longdouble).itemsize == 16 \
+                and np.finfo(np.longdouble).nmant == 63 and d[p + 7] == 64:
+            return _Type(np.dtype(f"{order}f16"), size), p + 12
+        if size not in (2, 4, 8):
+            raise NotImplementedError(f"HDF5 {size}-byte floats")
+        return _Type(np.dtype(f"{order}f{size}"), size), p + 12
+    if cls == 3:  # fixed-length string
+        enc = "utf-8" if (bits >> 4) & 0x0F == 1 else "ascii"
+        return _Type(np.dtype(f"S{size}", metadata={"h5py_encoding": enc}),
+                     size), p
+    if cls == 5:  # opaque, h5py's opaque_dtype when its tag says NUMPY:
+        tag = d[p:p + (bits & 0xFF)].rstrip(b"\0")
+        end = p + (bits & 0xFF)
+        if tag.startswith(b"NUMPY:"):
+            dt = np.dtype(tag[6:].decode("ascii"),
+                          metadata={"h5py_opaque": True})
+            if dt.itemsize == size:
+                return _Type(dt, size), end
+        return _Type(np.dtype(f"V{size}"), size), end
+    if cls == 6:
+        return _compound(d, p, version, bits, size, r)
+    if cls == 8:  # enum over its base integer; FALSE/TRUE is h5py's bool
+        base, p = _parse_datatype(d, p, r)
+        names = []
+        for _ in range(bits & 0xFFFF):
+            name, p = _name_at(d, p, version < 3)
+            names.append(name)
+        n = len(names)
+        vals = np.frombuffer(d[p:p + n * base.size], base.dtype, n).tolist()
+        p += n * base.size
+        members = dict(zip(names, vals))
+        if members == {b"FALSE": 0, b"TRUE": 1}:
+            if base.size == 1 and base.decode is None:
+                return _Type(np.dtype(np.bool_), size), p
+
+            def bool_decode(raw, file):
+                return base.values(raw, file) != 0
+
+            return _Type(np.dtype(np.bool_), size, bool_decode), p
+        meta = {"enum": {k.decode("utf-8"): v for k, v in members.items()}}
+        return _Type(np.dtype(base.dtype, metadata=meta), size,
+                     base.decode), p
+    if cls == 9:  # variable length: a string or a sequence of its base
+        base, p = _parse_datatype(d, p, r)
+        vsize = 4 + r.size_o + 4
+        if bits & 0x0F == 1:
+            kind = str if (bits >> 8) & 0x0F == 1 else bytes
+            return _Type(np.dtype("O", metadata={"vlen": kind}), vsize,
+                         _vlen_string_decode, 8), p
+        return _Type(np.dtype("O", metadata={"vlen": base.dtype}), vsize,
+                     _vlen_sequence_decode(base), 16), p
+    if cls == 10:  # array
+        ndims = d[p]
+        p += 1 if version >= 3 else 4
+        dims = struct.unpack_from(f"<{ndims}I", d, p)
+        p += 4 * ndims * (1 if version >= 3 else 2)
+        base, p = _parse_datatype(d, p, r)
+        return _array_of(base, dims), p
+    names = {2: "time types", 7: "object and region references"}
+    raise NotImplementedError(
+        f"HDF5 {names.get(cls, f'datatype class {cls}')}")
 
 
 # ---------------------------------------------------------------------------
@@ -184,9 +383,11 @@ def _unfilter(data: bytes, filters: list, mask: int) -> bytes:
 
 
 class _Header:
-    """The messages [(type, flags, data)] of one object header."""
+    """The messages [(type, flags, data)] of one object header, the
+    checksums of a v2 header and its continuation blocks verified."""
 
     def __init__(self, r: _Reader, addr: int):
+        self.r = r
         self.messages = []
         if r.buf[addr:addr + 4] == b"OHDR":
             self._read_v2(r, addr)
@@ -194,9 +395,6 @@ class _Header:
             self._read_v1(r, addr)
         else:
             raise OSError(f"HDF5: no object header at {addr}")
-        for _, flags, _ in self.messages:
-            if flags & 0x02:
-                raise NotImplementedError("HDF5 shared object header messages")
 
     def _v1_block(self, r, pos, end, pending):
         while pos + 8 <= end:
@@ -231,29 +429,51 @@ class _Header:
         nsize = 1 << (flags & 0x03)
         chunk0 = r.uint(pos, nsize)
         pos += nsize
+        index.verify(r, addr, pos + chunk0, "object header")
         track = bool(flags & 0x04)
         pending = []
         self._v2_block(r, pos, pos + chunk0, track, pending)
         while pending:
             cpos, length = pending.pop(0)
             r.check(cpos, b"OCHK", "object header continuation")
+            index.verify(r, cpos, cpos + length - 4,
+                         "object header continuation block")
             # past the signature, before the checksum
             self._v2_block(r, cpos + 4, cpos + length - 4, track, pending)
 
     def _add(self, r, mtype, flags, body, pending):
         """Keep a message; queue a continuation block (offset, length)."""
         if mtype == MSG_CONTINUATION:
-            pending.append((
-                int.from_bytes(body[:r.size_o], "little"),
-                int.from_bytes(body[r.size_o:r.size_o + r.size_l], "little")))
+            pending.append((r.addr_in(body, 0), int.from_bytes(
+                body[r.size_o:r.size_o + r.size_l], "little")))
         elif mtype != MSG_NIL:
             self.messages.append((mtype, flags, body))
 
     def find(self, mtype: int) -> Optional[bytes]:
-        for t, _, body in self.messages:
+        """The first message of mtype; one stored as shared (a committed
+        datatype's) is read from the object header it points at."""
+        for t, flags, body in self.messages:
             if t == mtype:
-                return body
+                return self._shared(mtype, body) if flags & 0x02 else body
         return None
+
+    def _shared(self, mtype: int, body: bytes) -> bytes:
+        version, kind = body[0], body[1]
+        if version == 1:
+            addr = self.r.addr_in(body, 8 + self.r.size_l)
+        elif version in (2, 3) and (version == 2 or kind != 1):
+            addr = self.r.addr_in(body, 2)
+        elif version == 3:
+            raise NotImplementedError(
+                "HDF5 messages in a shared-message table (SOHM)")
+        else:
+            raise NotImplementedError(f"HDF5 shared message version "
+                                      f"{version}")
+        target = _Header(self.r, addr).find(mtype)
+        if target is None:
+            raise OSError(f"HDF5: shared message {mtype} not found at "
+                          f"{addr}")
+        return target
 
     def all(self, mtype: int) -> list:
         return [body for t, _, body in self.messages if t == mtype]
@@ -271,6 +491,8 @@ class File:
         if mode != "r":
             raise ValueError("hdf5.File reads only (mode 'r')")
         self.filename = os.fspath(path)
+        self._mm = None
+        self._externals: dict = {}  # path -> File of an external link
         with open(self.filename, "rb") as f:
             size = os.fstat(f.fileno()).st_size
             if size < len(SIGNATURE):
@@ -279,6 +501,7 @@ class File:
             self._mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
         self._gheaps: dict = {}
         self._groups: dict = {}  # address -> Group, links read once
+        self._headers: dict = {}  # address -> _Header, checked once
         try:
             self._r, root = self._read_superblock(
                 self._find_superblock(size))
@@ -302,24 +525,25 @@ class File:
             size_o, size_l = mm[sb + 13], mm[sb + 14]
             pos = sb + 24 + (4 if version == 1 else 0)
             r = _Reader(mm, size_o, size_l)
-            base = r.addr(pos)
+            r.base = r.uint(pos, size_o)
             # root group symbol table entry after four addresses
-            entry = pos + 4 * size_o
-            root = r.addr(entry + size_o)
+            root = r.addr(pos + 5 * size_o)
         elif version in (2, 3):
             size_o, size_l = mm[sb + 9], mm[sb + 10]
             r = _Reader(mm, size_o, size_l)
-            base = r.addr(sb + 12)
+            index.verify(r, sb, sb + 12 + 4 * size_o, "superblock")
+            r.base = r.uint(sb + 12, size_o)
             root = r.addr(sb + 12 + 3 * size_o)
         else:
             raise NotImplementedError(f"HDF5 superblock version {version}")
-        if sb != 0 or base != 0:
-            raise NotImplementedError("HDF5 files with a user block")
         return r, root
 
     # the h5py.File surface --------------------------------------------------
     def close(self):
-        if getattr(self, "_mm", None) is not None:
+        for f in self._externals.values():
+            f.close()
+        self._externals = {}
+        if self._mm is not None:
             self._mm.close()
             self._mm = None
 
@@ -354,14 +578,38 @@ class File:
         return self._root.get(name, default)
 
     # internals --------------------------------------------------------------
+    def _header(self, addr: int) -> _Header:
+        hdr = self._headers.get(addr)
+        if hdr is None:
+            hdr = self._headers.setdefault(addr, _Header(self._r, addr))
+        return hdr
+
     def _object(self, addr: int, name: str):
         group = self._groups.get(addr)
         if group is not None:
             return group
-        hdr = _Header(self._r, addr)
+        hdr = self._header(addr)
         if hdr.find(MSG_LAYOUT) is not None:
             return Dataset(self, hdr, name)
+        if hdr.find(MSG_DATATYPE) is not None:
+            return Datatype(self, hdr, name)
         return self._groups.setdefault(addr, Group(self, addr, name, hdr))
+
+    def _external(self, target: str) -> "File":
+        """The file an external link names: an absolute path as it is,
+        else relative to this file's directory, then to the working
+        directory (HDF5's default search); opened once."""
+        candidates = [target]
+        if not os.path.isabs(target):
+            candidates.insert(0, os.path.join(
+                os.path.dirname(os.path.abspath(self.filename)), target))
+        for path in candidates:
+            key = os.path.abspath(path)
+            if key in self._externals:
+                return self._externals[key]
+            if os.path.exists(path):
+                return self._externals.setdefault(key, File(path))
+        raise KeyError(f"external link target {target!r} not found")
 
     def _gheap_object(self, addr: int, index: int) -> bytes:
         objs = self._gheaps.get(addr)
@@ -382,6 +630,16 @@ class File:
         return objs[index]
 
 
+class _Link:
+    """A link of a group: kind "hard" (target: an address), "soft" (a
+    path) or "external" ((file name, path)); crt: its creation order."""
+
+    __slots__ = ("kind", "target", "crt")
+
+    def __init__(self, kind: str, target, crt: int = 0):
+        self.kind, self.target, self.crt = kind, target, crt
+
+
 class Group:
     """A group of an HDF5 file: its links by name, ordered as h5py lists
     them (by creation order where the group tracks it, else by name)."""
@@ -389,7 +647,7 @@ class Group:
     def __init__(self, file: File, addr: int, name: str,
                  hdr: Optional[_Header] = None):
         self.file, self.name = file, name
-        self._hdr = hdr or _Header(file._r, addr)
+        self._hdr = hdr or file._header(addr)
         self._links: Optional[dict] = None
 
     def _read_links(self) -> dict:
@@ -397,27 +655,30 @@ class Group:
         links = {}
         stab = self._hdr.find(MSG_SYMBOL_TABLE)
         if stab is not None:
-            btree = int.from_bytes(stab[:r.size_o], "little")
-            heap = int.from_bytes(stab[r.size_o:2 * r.size_o], "little")
+            btree = r.addr_in(stab, 0)
+            heap = r.addr_in(stab, r.size_o)
             r.check(heap, b"HEAP", "local heap")
             data = r.addr(heap + 8 + 2 * r.size_l)
             self._walk_group_btree(r, btree, data, links)
         info = self._hdr.find(MSG_LINK_INFO)
         tracked = info is not None and bool(info[1] & 0x01)
+        bodies = self._hdr.all(MSG_LINK)
         if info is not None:
             pos = 2 + (8 if tracked else 0)
-            fheap = int.from_bytes(info[pos:pos + r.size_o], "little")
-            if fheap != UNDEF:
-                raise NotImplementedError(
-                    "HDF5 dense link storage (fractal heap)")
-        order = {}
-        for body in self._hdr.all(MSG_LINK):
-            name, addr, order[name] = self._parse_link(body, r.size_o)
-            links[name] = addr
+            fheap = r.addr_in(info, pos)
+            if fheap != UNDEF:  # dense: every link message is in the heap
+                heap = index.FractalHeap(r, fheap)
+                _, records = index.btree2_records(
+                    r, r.addr_in(info, pos + r.size_o))
+                # name index records: the name's hash, then the heap ID
+                bodies = bodies + [heap.get(rec[4:]) for rec in records]
+        for body in bodies:
+            name, link = self._parse_link(body, r)
+            links[name] = link
         # h5py lists a group that tracks creation order in that order,
         # any other by name
         if tracked:
-            return dict(sorted(links.items(), key=lambda kv: order[kv[0]]))
+            return dict(sorted(links.items(), key=lambda kv: kv[1].crt))
         return dict(sorted(links.items(),
                            key=lambda kv: kv[0].encode("utf-8")))
 
@@ -438,16 +699,23 @@ class Group:
             n = r.uint(child + 6, 2)
             entry = child + 8
             for _ in range(n):
-                start = heap_data + r.addr(entry)
-                name = r.bytes(start, r.buf.find(b"\0", start) - start)
-                if r.uint(entry + 2 * r.size_o, 4) == 2:  # cache type
-                    raise NotImplementedError(
-                        f"HDF5 soft links ({name.decode('utf-8')!r})")
-                links[name.decode("utf-8")] = r.addr(entry + r.size_o)
+                name = self._heap_string(r, heap_data + r.uint(entry,
+                                                               r.size_o))
+                if r.uint(entry + 2 * r.size_o, 4) == 2:  # a soft link
+                    value = r.uint(entry + 2 * r.size_o + 8, 4)
+                    links[name] = _Link("soft", self._heap_string(
+                        r, heap_data + value))
+                else:
+                    links[name] = _Link("hard", r.addr(entry + r.size_o))
                 entry += 2 * r.size_o + 24
 
     @staticmethod
-    def _parse_link(d: bytes, size_o: int):
+    def _heap_string(r, start: int) -> str:
+        return r.bytes(start, r.buf.find(b"\0", start) - start).decode(
+            "utf-8")
+
+    @staticmethod
+    def _parse_link(d: bytes, r):
         flags = d[1]
         pos = 2
         ltype = 0
@@ -465,10 +733,17 @@ class Group:
         pos += nlen_size
         name = d[pos:pos + nlen].decode("utf-8")
         pos += nlen
-        if ltype != 0:
-            kind = "soft" if ltype == 1 else "external"
-            raise NotImplementedError(f"HDF5 {kind} links ({name!r})")
-        return name, int.from_bytes(d[pos:pos + size_o], "little"), crt
+        if ltype == 0:
+            return name, _Link("hard", r.addr_in(d, pos), crt)
+        size = int.from_bytes(d[pos:pos + 2], "little")
+        value = d[pos + 2:pos + 2 + size]
+        if ltype == 1:
+            return name, _Link("soft", value.decode("utf-8"), crt)
+        if ltype == 64:  # a flags byte, then the file and the object path
+            fname, path = value[1:].split(b"\0")[:2]
+            return name, _Link("external", (fname.decode("utf-8"),
+                                            path.decode("utf-8")), crt)
+        raise NotImplementedError(f"HDF5 user-defined links ({name!r})")
 
     @property
     def links(self) -> dict:
@@ -476,29 +751,44 @@ class Group:
             self._links = self._read_links()
         return self._links
 
-    def _child(self, name: str):
-        addr = self.links[name]
-        path = (self.name.rstrip("/") + "/" + name)
-        return self.file._object(addr, path)
+    def _child(self, name: str, hops: int = 0):
+        """The object a link of this group leads to; KeyError where it
+        leads nowhere (a dangling soft or external link)."""
+        link = self.links[name]
+        if link.kind == "hard":
+            return self.file._object(link.target,
+                                     self.name.rstrip("/") + "/" + name)
+        if link.kind == "soft":
+            if hops >= MAX_SOFT_HOPS:
+                raise KeyError(f"too many soft links from {name!r}")
+            return self._walk(link.target, hops + 1)
+        fname, path = link.target
+        return self.file._external(fname)._root._walk(path, hops)
 
-    def __getitem__(self, name: str):
-        obj = self
-        for part in name.strip("/").split("/"):
-            if not part:
+    def _walk(self, path: str, hops: int = 0):
+        obj = self.file._root if path.startswith("/") else self
+        for part in path.split("/"):
+            if not part or part == ".":
                 continue
-            if not isinstance(obj, Group):
-                raise KeyError(name)
-            if part not in obj.links:
-                raise KeyError(f"{name!r} is not in {self.name!r}")
-            obj = obj._child(part)
+            if not isinstance(obj, Group) or part not in obj.links:
+                raise KeyError(f"{path!r} is not in {self.name!r}")
+            obj = obj._child(part, hops)
         return obj
 
+    def __getitem__(self, name: str):
+        return self._walk(name)
+
     def __contains__(self, name) -> bool:
+        """Whether the link exists (h5py: a dangling soft link is in its
+        group, though reading it raises KeyError)."""
+        head, _, last = name.rstrip("/").rpartition("/")
         try:
-            self[name]
+            parent = self._walk(head or ("/" if name.startswith("/")
+                                         else ""))
         except KeyError:
             return False
-        return True
+        return not last or (isinstance(parent, Group)
+                            and last in parent.links)
 
     def get(self, name, default=None):
         try:
@@ -510,7 +800,8 @@ class Group:
         return list(self.links)
 
     def items(self):
-        return [(k, self._child(k)) for k in self.links]
+        """(name, object) pairs; None for a dangling link, as h5py."""
+        return [(k, self.get(k)) for k in self.links]
 
     def __iter__(self):
         return iter(list(self.links))
@@ -525,8 +816,22 @@ class Group:
         return f"<HDF5 group {self.name!r} ({len(self)} members)>"
 
 
+class Datatype:
+    """A committed (named) datatype of a file, as h5py.Datatype: its
+    numpy dtype."""
+
+    def __init__(self, file: File, hdr: _Header, name: str):
+        self.file, self.name = file, name
+        self.dtype = _parse_datatype(hdr.find(MSG_DATATYPE), 0,
+                                     file._r)[0].dtype
+
+    def __repr__(self):
+        return f"<HDF5 named type {self.name!r}: {self.dtype}>"
+
+
 class Dataset:
-    """A dataset of an HDF5 file; reading it gives a numpy array."""
+    """A dataset of an HDF5 file; reading it gives a numpy array (Empty
+    for a null dataspace)."""
 
     def __init__(self, file: File, hdr: _Header, name: str):
         r = file._r
@@ -535,16 +840,19 @@ class Dataset:
         dtype = hdr.find(MSG_DATATYPE)
         if space is None or dtype is None:
             raise OSError(f"HDF5: {name} has no dataspace or datatype")
-        self.shape = _parse_dataspace(space, r.size_l)
-        self._type = _parse_datatype(dtype, r.size_o)
+        self.shape, self.maxshape = _parse_dataspace(space, r.size_l)
+        self._type = _parse_datatype(dtype, 0, r)[0]
         self.dtype = self._type.dtype
         self._layout = hdr.find(MSG_LAYOUT)
         filters = hdr.find(MSG_FILTERS)
-        self._filters = _parse_filters(filters) if filters else []
+        self._filters = filters_mod.parse_filters(filters) if filters \
+            else []
         self._fill = self._fill_bytes(hdr)
 
     @property
-    def size(self) -> int:
+    def size(self) -> Optional[int]:
+        if self.shape is None:
+            return None
         return int(np.prod(self.shape, dtype=np.int64))
 
     def __repr__(self):
@@ -557,7 +865,7 @@ class Dataset:
         lay = self._layout
         if lay[0] not in (3, 4) or lay[1] != 1:
             return None
-        addr = int.from_bytes(lay[2:2 + self.file._r.size_o], "little")
+        addr = self.file._r.addr_in(lay, 2)
         return None if addr == UNDEF else addr
 
     def _fill_bytes(self, hdr) -> Optional[bytes]:
@@ -581,92 +889,84 @@ class Dataset:
             return body[4:4 + size] if size else None
         return None
 
-    def _empty(self) -> np.ndarray:
+    def _decode(self, data, count: int, offset: int = 0) -> np.ndarray:
+        """count stored elements of `data` from offset as values, shaped
+        [count] and any array dimensions of the type."""
         t = self._type
-        if t.vlen:
-            out = np.empty(self.shape, object)
-            out.fill(b"")
-            return out
-        if self._fill is not None and len(self._fill) == t.size:
-            return np.full(self.shape, np.frombuffer(self._fill, t.dtype)[0],
-                           t.dtype)
-        return np.zeros(self.shape, t.dtype)
+        if t.decode is None and t.dtype.subdtype is None:
+            return np.frombuffer(data, t.dtype, count, offset)
+        raw = np.frombuffer(data, np.uint8, count * t.size, offset)
+        return t.values(raw.reshape(count, t.size), self.file)
 
-    def _raw_dtype(self) -> np.dtype:
-        return np.dtype(f"V{self._type.size}") if self._type.vlen \
-            else self._type.dtype
+    def _full_shape(self) -> tuple:
+        sub = self.dtype.subdtype
+        return self.shape + (sub[1] if sub else ())
 
-    def _from_raw(self, raw: np.ndarray) -> np.ndarray:
-        """Stored elements to values (variable-length strings from the
-        global heap)."""
-        if not self._type.vlen:
-            return raw
-        r = self.file._r
-        flat = raw.reshape(-1)
-        out = np.empty(flat.shape, object)
-        for i, rec in enumerate(flat):
-            b = bytes(rec)
-            n = int.from_bytes(b[:4], "little")
-            addr = int.from_bytes(b[4:4 + r.size_o], "little")
-            idx = int.from_bytes(b[4 + r.size_o:8 + r.size_o], "little")
-            out[i] = b"" if addr in (0, UNDEF) else \
-                self.file._gheap_object(addr, idx)[:n]
-        return out.reshape(raw.shape)
+    def _empty(self) -> np.ndarray:
+        """Every element the fill value (zeros where none is defined)."""
+        t = self._type
+        fill = self._fill if self._fill is not None and \
+            len(self._fill) == t.size else bytes(t.size)
+        one = self._decode(fill, 1)
+        out = np.empty((self.size,) + one.shape[1:], one.dtype)
+        out[:] = one
+        return out.reshape(self._full_shape())
 
     def _read(self) -> np.ndarray:
         r = self.file._r
         lay = self._layout
         version, cls = lay[0], lay[1]
+        if self.shape is None:
+            return Empty(self.dtype)
         if version not in (3, 4):
             raise NotImplementedError(f"HDF5 data layout version {version}")
-        raw_dt = self._raw_dtype()
         count = self.size
         if cls == 0:  # compact: the data is in the message
-            size = int.from_bytes(lay[2:4], "little")
-            raw = np.frombuffer(lay[4:4 + size], raw_dt, count)
-            return self._from_raw(raw.reshape(self.shape).copy())
+            return self._decode(lay, count, 4).reshape(
+                self._full_shape()).copy()
         if cls == 1:  # contiguous
-            addr = int.from_bytes(lay[2:2 + r.size_o], "little")
+            addr = r.addr_in(lay, 2)
             if addr == UNDEF or count == 0:
                 return self._empty()
-            raw = np.frombuffer(r.buf, raw_dt, count, addr)
-            return self._from_raw(raw.reshape(self.shape).copy())
+            return self._decode(r.buf, count, addr).reshape(
+                self._full_shape()).copy()
         if cls == 2:
-            if version == 4:
-                raise NotImplementedError(
-                    f"HDF5 layout-v4 chunk indexes (index type "
-                    f"{self._v4_index_type(lay)})")
-            return self._read_chunked(lay)
+            if version == 3:
+                rank = lay[2]
+                chunk = tuple(int.from_bytes(lay[3 + r.size_o + 4 * i:
+                                                 7 + r.size_o + 4 * i],
+                                             "little")
+                              for i in range(rank))[:-1]
+                btree = r.addr_in(lay, 3)
+                chunks = [] if btree == UNDEF else \
+                    self._v1_chunks(r, btree, rank)
+                return self._assemble(chunk, chunks)
+            return self._read_v4_chunked(r, lay)
+        if cls == 3:
+            raise NotImplementedError("HDF5 virtual datasets")
         raise NotImplementedError(f"HDF5 data layout class {cls}")
 
-    @staticmethod
-    def _v4_index_type(lay: bytes) -> int:
-        rank, enc = lay[3], lay[4]
-        return lay[5 + rank * enc]
-
-    def _read_chunked(self, lay: bytes) -> np.ndarray:
+    def _assemble(self, chunk: tuple, chunks) -> np.ndarray:
+        """The dataset from its chunks [(element offsets, stored size,
+        filter mask, address)], the fill value where none was written."""
         r = self.file._r
-        rank = lay[2]
-        btree = int.from_bytes(lay[3:3 + r.size_o], "little")
-        pos = 3 + r.size_o
-        dims = [int.from_bytes(lay[pos + 4 * i:pos + 4 * i + 4], "little")
-                for i in range(rank)]
-        chunk = tuple(dims[:-1])
         out = self._empty()
-        if btree == UNDEF:
-            return out
-        raw_dt = self._raw_dtype()
-        for offsets, size, mask, addr in self._chunks(r, btree, rank):
-            data = _unfilter(r.bytes(addr, size), self._filters, mask)
-            block = np.frombuffer(data, raw_dt, int(np.prod(chunk)))
-            block = self._from_raw(block.reshape(chunk))
+        n = int(np.prod(chunk, dtype=np.int64))
+        nbytes = n * self._type.size
+        for offsets, size, mask, addr in chunks:
+            data = r.buf[addr:addr + size]
+            if self._filters:
+                data = filters_mod.unfilter(bytes(data), self._filters, mask,
+                                            nbytes)
+            block = self._decode(data, n)
+            block = block.reshape(chunk + block.shape[1:])
             dst = tuple(slice(o, min(o + c, s))
                         for o, c, s in zip(offsets, chunk, self.shape))
             src = tuple(slice(0, d.stop - d.start) for d in dst)
             out[dst] = block[src]
         return out
 
-    def _chunks(self, r, addr, rank):
+    def _v1_chunks(self, r, addr, rank):
         """(offsets, stored size, filter mask, address) of every chunk
         under a v1 B-tree node."""
         r.check(addr, b"TREE", "v1 B-tree")
@@ -682,15 +982,119 @@ class Dataset:
             child = r.addr(pos + key_size)
             pos += key_size + r.size_o
             if level > 0:
-                yield from self._chunks(r, child, rank)
+                yield from self._v1_chunks(r, child, rank)
             else:
                 yield offsets, size, mask, child
 
+    def _read_v4_chunked(self, r, lay: bytes) -> np.ndarray:
+        """A layout-v4 chunked dataset, its chunks found through one of
+        the five chunk indexes."""
+        flags, ndims, enc = lay[2], lay[3], lay[4]
+        dims = [int.from_bytes(lay[5 + i * enc:5 + (i + 1) * enc], "little")
+                for i in range(ndims)]
+        chunk, esize = tuple(dims[:-1]), dims[-1]
+        pos = 5 + ndims * enc
+        kind = lay[pos]
+        pos += 1
+        if flags & 0x01 and self._filters:
+            raise NotImplementedError("HDF5 unfiltered partial edge chunks")
+        nbytes = int(np.prod(chunk, dtype=np.int64)) * esize
+        if kind == 1:  # single chunk: the index address is the chunk's
+            size, mask = nbytes, 0
+            if flags & 0x02:  # filtered: its stored size and filter mask
+                size = int.from_bytes(lay[pos:pos + r.size_l], "little")
+                mask = int.from_bytes(lay[pos + r.size_l:pos + r.size_l + 4],
+                                      "little")
+                pos += r.size_l + 4
+            addr = r.addr_in(lay, pos)
+            chunks = [] if addr == UNDEF else [((0,) * len(chunk), size,
+                                                mask, addr)]
+            return self._assemble(chunk, chunks)
+        if kind not in (2, 3, 4, 5):
+            raise NotImplementedError(f"HDF5 chunk index type {kind}")
+        # past the index's parameters: none, page bits, the extensible
+        # array's five, the v2 B-tree's node size and split and merge
+        addr = r.addr_in(lay, pos + {2: 0, 3: 1, 4: 5, 5: 6}[kind])
+        if addr == UNDEF:
+            return self._assemble(chunk, [])
+        grid = [-(-s // c) for s, c in zip(self.shape, chunk)]
+        maxgrid = [None if m is None else -(-m // c)
+                   for m, c in zip(self.maxshape, chunk)]
+        if kind == 2:  # implicit: every chunk in place, in grid order
+            down = _down(maxgrid)
+            chunks = [(tuple(s * c for s, c in zip(sc, chunk)), nbytes, 0,
+                       addr + int(np.dot(sc, down)) * nbytes)
+                      for sc in np.ndindex(*grid)]
+            return self._assemble(chunk, chunks)
+        def stored(rec, end):
+            """(stored size, filter mask) of a chunk record: after its
+            address where the chunks are filtered, the size's bytes
+            running to the mask's 4 before `end`."""
+            if not self._filters:
+                return nbytes, 0
+            o = r.size_o
+            return (int.from_bytes(rec[o:end - 4], "little"),
+                    int.from_bytes(rec[end - 4:end], "little"))
+
+        if kind == 5:  # v2 B-tree records: the scaled offsets come last
+            _, records = index.btree2_records(r, addr)
+            chunks = []
+            for rec in records:
+                p = len(rec) - 8 * len(chunk)
+                scaled = struct.unpack_from(f"<{len(chunk)}Q", rec, p)
+                chunks.append((tuple(s * c for s, c in zip(scaled, chunk)),
+                               *stored(rec, p), r.addr_in(rec, 0)))
+            return self._assemble(chunk, chunks)
+        if kind == 3:
+            esz, elems = index.fixed_array(r, addr)
+            down, unlim = _down(maxgrid), None
+        else:
+            esz, elems = index.extensible_array(r, addr)
+            unlim = [i for i, m in enumerate(maxgrid) if m is None][0]
+            # the unlimited dimension is the slowest in the index
+            order = [unlim] + [i for i in range(len(chunk)) if i != unlim]
+            down = _down([maxgrid[i] for i in order])
+        chunks = []
+        for i, e in elems:
+            caddr = r.addr_in(e, 0)
+            if caddr == UNDEF:
+                continue
+            scaled = _unravel(i, down)
+            if unlim is not None:
+                scaled = [scaled[order.index(d)] for d in range(len(chunk))]
+            if any(s >= g for s, g in zip(scaled, grid)):
+                continue  # beyond the current extent
+            chunks.append((tuple(s * c for s, c in zip(scaled, chunk)),
+                           *stored(e, esz), caddr))
+        return self._assemble(chunk, chunks)
+
     def __getitem__(self, key):
         arr = self._read()
+        if isinstance(arr, Empty):
+            if (isinstance(key, tuple) and not key) or key is Ellipsis:
+                return arr
+            raise ValueError("an empty (null dataspace) dataset has no "
+                             "elements to index")
         if (isinstance(key, tuple) and not key) or key is Ellipsis:
             return arr[()] if arr.ndim == 0 else arr
         return arr[key]
+
+
+def _down(extents) -> list:
+    """Row-major strides of a chunk grid (the first extent may be None,
+    an unlimited dimension, which no stride uses)."""
+    out = [1] * len(extents)
+    for i in range(len(extents) - 2, -1, -1):
+        out[i] = out[i + 1] * extents[i + 1]
+    return out
+
+
+def _unravel(i: int, down) -> list:
+    out = []
+    for d in down:
+        out.append(i // d)
+        i %= d
+    return out
 
 
 # ---------------------------------------------------------------------------

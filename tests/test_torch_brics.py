@@ -1,8 +1,10 @@
 """The port's BRICS loaders (data/brics.py), calibration and undistortion
 (data/params.py) and batch assembly (data/prefetch.py, csrc/image_ops.cpp)
 against OpenCV and the JAX package's loaders on the CPU, on small captures
-written here: 64x64, 3-5 cameras, 3 frames an action, non-zero lens
-distortion.
+written here: 64x64, 3-9 cameras, 3 frames an action, non-zero lens
+distortion; dynamic captures by h5py (its default libver, and libver
+"latest" with creation order, dense groups and lzf crops) and by the
+port's own writer.
 
 Tolerances: the undistortion's bytes equal OpenCV's but on at most
 UNDIST_SHARE of the pixels, each off by at most 1 (a source position
@@ -27,6 +29,7 @@ from manus_tpu_torch.data.synthetic import hemisphere_cameras
 from manus_tpu_torch.preprocess.novel_pose import generate_flexion_sequence
 from manus_tpu_torch.utils import cuda_build
 from manus_tpu_torch.utils.io import dump_points
+from scripts import torch_hdf5_fixtures as fixtures
 
 cv2 = pytest.importorskip("cv2")
 h5py = pytest.importorskip("h5py")
@@ -127,17 +130,45 @@ def _h5py_write(group, tree):
             group.create_dataset(name, data=value)
 
 
+# "h5py_latest" writes at least this many cameras, so that every
+# per-camera group holds more than 8 links (dense storage)
+LATEST_CAMS = 9
+
+
+def camera_order(writer, n_cams=3):
+    """The cameras' names in the order the writer creates them, which is
+    the order h5py lists K/ and extr/ in: by name but for "h5py_latest"
+    (track_order=True), which creates the odd ones first."""
+    names = [f"cam{i:03d}" for i in range(
+        max(n_cams, LATEST_CAMS) if writer == "h5py_latest" else n_cams)]
+    return names[1::2] + names[0::2] if writer == "h5py_latest" else names
+
+
 def write_dynamic_capture(root, actions=(("grasp_a", ("0", "1", "2")),
                                          ("grasp_b", ("0", "5", "10"))),
                           writer="h5py", n_cams=3):
-    """One .hdf5 file an action, written by h5py or by hdf5.write_tree."""
+    """One .hdf5 file an action, written by h5py (its default libver), by
+    hdf5.write_tree, or by h5py as "h5py_latest": libver="latest",
+    track_order=True, lzf-compressed chunked crops and camera_order's
+    cameras (dense link storage in every per-camera group)."""
     os.makedirs(root, exist_ok=True)
+    order = camera_order(writer, n_cams)
     for seed, (action, frames) in enumerate(actions):
-        tree = capture_tree(frames, n_cams=n_cams, seed=seed)
+        tree = capture_tree(frames, n_cams=len(order), seed=seed)
         path = os.path.join(root, f"{action}.hdf5")
         if writer == "h5py":
             with h5py.File(path, "w") as f:
                 _h5py_write(f, tree)
+        elif writer == "h5py_latest":
+            for group in ("K", "extr"):
+                tree[group] = {m: tree[group][m] for m in order}
+            for frame in tree["frames"].values():
+                for group in ("images", "bbox"):
+                    frame[group] = {m: frame[group][m] for m in order}
+            with h5py.File(path, "w", libver="latest",
+                           track_order=True) as f:
+                fixtures.write_h5py_tree(f, tree, lambda c: dict(
+                    chunks=True, compression="lzf"))
         else:
             hdf5.write_tree(path, tree)
     return root
@@ -148,10 +179,12 @@ def static_capture(tmp_path_factory):
     return write_static_capture(str(tmp_path_factory.mktemp("static")))
 
 
-@pytest.fixture(scope="module", params=["h5py", "write_tree"])
+@pytest.fixture(scope="module", params=["h5py", "write_tree", "h5py_latest"])
 def dynamic_capture(tmp_path_factory, request):
-    return write_dynamic_capture(
-        str(tmp_path_factory.mktemp("dynamic")), writer=request.param)
+    """(root, the cameras in h5py's order) of a capture by each writer."""
+    root = write_dynamic_capture(str(tmp_path_factory.mktemp("dynamic")),
+                                 writer=request.param)
+    return root, camera_order(request.param)
 
 
 def _same_cameras(t, j):
@@ -320,13 +353,14 @@ def test_dynamic_dataset_matches_jax(dynamic_capture, split, resize, steps):
     """Two actions (frames 0, 5, 10 in the second: sorted by int), the
     frame split, num_time_steps' stride, resize_factor 0.5 (downscale 2),
     bones, samplers and every batch."""
-    kw = dict(root_dir=dynamic_capture, width=W, height=H, split=split,
+    root, cam_names = dynamic_capture
+    kw = dict(root_dir=root, width=W, height=H, split=split,
               resize_factor=resize, num_time_steps=steps)
     want = jbrics.BricsDynamicDataset(**kw)
     got = tbrics.BricsDynamicDataset(**kw, device="cpu")
     assert got._frame_index == want._frame_index
     assert got.num_frames == want.num_frames and got.actions == want.actions
-    assert got.cam_names == want.cam_names == ["cam000", "cam001", "cam002"]
+    assert got.cam_names == want.cam_names == cam_names
     _same_cameras(got.cameras, want.cameras)
     assert abs(got.extent - want.extent) <= ATOL * want.extent
     _same_bones(got.bones_rest, want.bones_rest)
@@ -352,6 +386,7 @@ def test_dynamic_dataset_matches_jax(dynamic_capture, split, resize, steps):
 def test_dynamic_frame_index_and_split(dynamic_capture):
     """6 frames at split_ratio 0.1: 5 train, 1 val; a split of 0 keeps
     every frame in both."""
+    dynamic_capture, _ = dynamic_capture
     ds = tbrics.BricsDynamicDataset(dynamic_capture, W, H, device="cpu")
     assert ds._frame_index == [("grasp_a", "0"), ("grasp_a", "1"),
                                ("grasp_a", "2"), ("grasp_b", "0"),

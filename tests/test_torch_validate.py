@@ -130,13 +130,18 @@ def test_dynamic_findings_match_jax(fake_dynamic_h5, tmp_path):
     assert any(UNREADABLE in s for s in got)
 
 
-@pytest.mark.parametrize("writer", ["h5py", "write_tree"])
+@pytest.mark.parametrize("writer", ["h5py", "write_tree", "h5py_latest"])
 def test_dynamic_findings_on_bad_crops_match_jax(writer, tmp_path):
     """A crop of the wrong size, a float crop, a bad bbox shape, frames
-    sampled from a longer action, a second action with another rig."""
+    sampled from a longer action, a second action with another rig; by
+    each writer (h5py_latest: libver "latest", dense groups in creation
+    order, lzf crops)."""
     root = write_dynamic_capture(
         str(tmp_path / "cap"), writer=writer, actions=(
             ("a", tuple(str(i) for i in range(7))), ("b", ("0", "x"))))
+    kw = dict(width=64, height=64, n_bones=20, frames_per_action=-1)
+    assert tval.validate_dynamic_capture(root, **kw) == \
+        jval.validate_dynamic_capture(root, **kw)
     with h5py.File(os.path.join(root, "a.hdf5"), "r+") as f:
         img = f["frames/0/images"]
         crop = img["cam001"][:]
@@ -156,18 +161,19 @@ def test_dynamic_findings_on_bad_crops_match_jax(writer, tmp_path):
 
 
 def test_unsupported_hdf5_form_is_an_error(tmp_path):
-    """A form the reader does not read (here an lzf crop) is reported as an
-    error of its file; the walk goes on to the next file."""
+    """A form the reader does not read (here a crop that is an array of
+    object references) is reported as an error of its file; the walk goes
+    on to the next file."""
     root = write_dynamic_capture(str(tmp_path / "cap"), writer="h5py")
     with h5py.File(os.path.join(root, "grasp_a.hdf5"), "r+") as f:
-        crop = f["frames/1/images/cam000"][:]
-        del f["frames/1/images/cam000"]
-        f["frames/1/images"].create_dataset("cam000", data=crop,
-                                            chunks=True, compression="lzf")
+        images = f["frames/1/images"]
+        del images["cam000"]
+        images.create_dataset("cam000", data=[images["cam001"].ref],
+                              dtype=h5py.ref_dtype)
     got = tval.validate_dynamic_capture(root, 64, 64, frames_per_action=-1)
     errs = [s for s in got if s.startswith("[error]")]
     assert len(errs) == 1 and "unsupported HDF5 form" in errs[0]
-    assert "lzf" in errs[0] and "grasp_a.hdf5" in errs[0]
+    assert "references" in errs[0] and "grasp_a.hdf5" in errs[0]
 
 
 def test_validate_capture_and_report(fake_static_dir):
