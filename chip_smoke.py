@@ -1637,6 +1637,11 @@ def _run_cli(argv):
             torch.cuda.max_memory_allocated() / 2**20, wall)
 
 
+def cache_mb(cache) -> float:
+    """MiB of a Trainer cache (a tuple of tensors, or None when off)."""
+    return sum(x.numel() * x.element_size() for x in cache or ()) / 2**20
+
+
 def _csv_rows(path):
     with open(path) as f:
         rows = [line.strip().split(",") for line in f if line.strip()]
@@ -1693,12 +1698,13 @@ def trainer_phase(bare_ms):
           "trainer: no opacity reset at 250")
     check(sum(ln.startswith("[densify] step") for ln in events) == 2,
           "trainer: densify events are not at 200 and 300")
-    print(f"trainer: caches: images {t['image_cache_mb']:.1f} MiB, gt LPIPS "
-          f"features {t['lpips_cache_mb']:.1f} MiB; validations "
-          f"{[round(x * 1e3, 1) for x in t['val_s']]} ms; checkpoint saves "
-          f"{[round(x * 1e3, 1) for x in t['save_s']]} ms, "
-          f"{[round(x, 1) for x in t['save_mb']]} MiB each")
-    check(t["lpips_cache_mb"] > 0, "trainer: the gt LPIPS cache was skipped")
+    ckpt_mb = [os.path.getsize(os.path.join(tr.ckpt_dir, p)) / 2**20
+               for p in sorted(os.listdir(tr.ckpt_dir)) if p.endswith(".npz")]
+    lpips_mb = cache_mb(tr._lpips_feat_cache)
+    print(f"trainer: caches: images {cache_mb(tr._device_cache):.1f} MiB, "
+          f"gt LPIPS features {lpips_mb:.1f} MiB; checkpoints "
+          f"{[round(x, 1) for x in ckpt_mb]} MiB each")
+    check(lpips_mb > 0, "trainer: the gt LPIPS cache was skipped")
 
     # the last checkpoint is the state fit() ended with
     last = max(p for p in os.listdir(tr.ckpt_dir) if p.endswith(".npz"))
@@ -3005,7 +3011,7 @@ def _brics_runs(dev, dyn, static):
                                      "images"))
     print(f"brics object: {BRICS_OBJ_STEPS} steps through the CLI in "
           f"{owall:.1f} s, {int(otr.state.model.active.sum())} of 131072 "
-          f"slots live, over a {otr.timings['image_cache_mb']:.1f} MiB "
+          f"slots live, over a {cache_mb(otr._device_cache):.1f} MiB "
           f"image cache ({otr.dataset.num_views} cameras); fit loop median "
           f"{_step_ms(otr, WARMUP, None):.3f} ms/step; peak {opeak:.1f} MiB; "
           f"val on {otr.val_dataset.num_views} held-out cameras: psnr "

@@ -24,7 +24,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from manus_tpu_torch.utils import cuda_build
+from manus_tpu_torch.utils import cuda_build, trace
 
 ASSEMBLE_THREADS = 4
 _SIGNATURES = {"assemble_batch": ([
@@ -117,7 +117,11 @@ def assemble_batch_numpy(crops, bboxes, height: int, width: int, bg,
 class PrefetchLoader:
     """Runs `sample_fn` in a background thread, keeping up to `depth`
     batches ready. An exception in the thread is raised again by the next
-    `__next__`; `close` stops and joins the thread."""
+    `__next__`; `close` stops and joins the thread. `n_put` counts the
+    batches the thread has put and `n_got` those `__next__` has returned:
+    with one producer and a FIFO queue, the n-th batch put (a
+    `prefetch.sample` span with seq n, utils/trace.py) is the n-th
+    received."""
 
     def __init__(self, sample_fn: Callable[[], object], depth: int = 2,
                  device=None):
@@ -126,6 +130,7 @@ class PrefetchLoader:
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._exc: Optional[BaseException] = None
+        self.n_put = self.n_got = 0
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
@@ -134,10 +139,12 @@ class PrefetchLoader:
             if self._device is not None and self._device.type == "cuda":
                 torch.cuda.set_device(self._device)
             while not self._stop.is_set():
-                batch = self._sample()
+                with trace.span("prefetch.sample", seq=self.n_put):
+                    batch = self._sample()
                 while not self._stop.is_set():
                     try:
                         self._q.put(batch, timeout=0.1)
+                        self.n_put += 1
                         break
                     except queue.Full:
                         continue
@@ -150,12 +157,15 @@ class PrefetchLoader:
     def __next__(self):
         while True:
             try:
-                return self._q.get(timeout=0.1)
+                batch = self._q.get(timeout=0.1)
             except queue.Empty:
                 if self._exc is not None:
                     raise self._exc
                 if not self._thread.is_alive():
                     raise StopIteration
+            else:
+                self.n_got += 1
+                return batch
 
     def close(self):
         self._stop.set()

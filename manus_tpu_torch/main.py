@@ -35,6 +35,13 @@ a camera path (render_path), or run a test epoch (test).
   python -m manus_tpu_torch.main --config-name OBJ_GAUSSIAN \\
       dataset.kind=brics_static dataset.root=... trainer.mode=validate_data
 
+--trace-out PATH records the run's spans (the fit loop, the train step,
+the prefetch thread, the composite frames; utils/trace.py) and writes
+them to PATH as Chrome trace-event JSON, which Perfetto opens:
+
+  python -m manus_tpu_torch.main --trace-out hand.trace.json \\
+      --config-name HAND_GAUSSIAN trainer.max_steps=300
+
 The JAX package's CLI (main.py) has the same shape, and a run directory
 of either package resumes under the other. Runs go to the CUDA card
 unless --device names another device; trainer.mode=validate_data checks
@@ -124,6 +131,7 @@ from manus_tpu_torch.train.workloads import (
     make_raster_config,
     resolve_skin_weights,
 )
+from manus_tpu_torch.utils import trace
 from manus_tpu_torch.utils.camera import index_camera
 from manus_tpu_torch.utils.device import resolve_device
 from manus_tpu_torch.utils.io import (
@@ -406,17 +414,19 @@ def run_composite(cfg, out_dir, device=None) -> CompositeRun:
         frame_list = frame_list[-250:]
     frame_s, overflow, stats, images = [], 0, {}, []
     for f in frame_list:
-        t0 = time.perf_counter()
-        cam = (path_cams[f % len(path_cams)] if path_cams is not None
-               else index_camera(dataset.cameras, f % dataset.num_views))
-        render, acc, _ = render_fn(
-            models, _bone_tf(dataset, f, hand_vg), cam, cano_cam, bg, acc,
-            aux_colors, stats=stats)
-        img = render.clamp(0, 1).cpu().numpy()
-        frame_s.append(time.perf_counter() - t0)
-        overflow = max(overflow, int(stats["pair_overflow"]))
-        images.append((img * 255).astype(np.uint8))
-        dump_image(images[-1], os.path.join(out_imgs, f"{f:04d}.png"))
+        with trace.span("composite.frame", frame=f):
+            t0 = time.perf_counter()
+            cam = (path_cams[f % len(path_cams)] if path_cams is not None
+                   else index_camera(dataset.cameras, f % dataset.num_views))
+            render, acc, _ = render_fn(
+                models, _bone_tf(dataset, f, hand_vg), cam, cano_cam, bg,
+                acc, aux_colors, stats=stats)
+            img = render.clamp(0, 1).cpu().numpy()
+            frame_s.append(time.perf_counter() - t0)
+            overflow = max(overflow, int(stats["pair_overflow"]))
+            with trace.span("composite.png"):
+                images.append((img * 255).astype(np.uint8))
+                dump_image(images[-1], os.path.join(out_imgs, f"{f:04d}.png"))
     np.save(acc_path, acc.cpu().numpy())
     video = dump_video(images, os.path.join(out_imgs, f"{mode}.mp4"), fps=10)
     print(f"composite: wrote {len(frame_list)} frames to {out_imgs} "
@@ -664,6 +674,11 @@ def main(argv=None):
         "--device", default="cuda",
         help="torch device of the run (default cuda; the CPU only when "
         "named, e.g. --device cpu)")
+    parser.add_argument(
+        "--trace-out", metavar="PATH",
+        help="record the run's spans (utils/trace.py) and write them to "
+        "PATH as Chrome trace-event JSON, for Perfetto; a rank of several "
+        "writes PATH with .rank<r> before its suffix")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
 
@@ -692,6 +707,28 @@ def main(argv=None):
     if sharded and not cfg.trainer.distributed and not any(
             m in os.environ for m in LAUNCHER_MARKERS):
         return launch_local_ranks(argv, world)
+    if not args.trace_out:
+        return _run(cfg, device, sharded)
+    trace.enable()
+    try:
+        return _run(cfg, device, sharded)
+    finally:
+        trace.disable()
+        trace.write_chrome_trace(_rank_path(args.trace_out))
+        trace.clear()
+
+
+def _rank_path(path: str) -> str:
+    """`path`, or with .rank<r> before its suffix on a rank of several."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return path
+    stem, ext = os.path.splitext(path)
+    return f"{stem}.rank{dist.get_rank()}{ext}"
+
+
+def _run(cfg, device, sharded: bool):
+    """main's run of the parsed config on `device`: join the process group
+    when a rank, then the mode's entry point."""
     if cfg.trainer.distributed or sharded:
         # one rank of several: the process group before any device use
         active = initialize_distributed(

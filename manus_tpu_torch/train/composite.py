@@ -46,6 +46,7 @@ from manus_tpu_torch.train.workloads import (
     resolve_skin_weights,
 )
 from manus_tpu_torch.utils import losses as loss_mod
+from manus_tpu_torch.utils import trace
 from manus_tpu_torch.utils.colormap import apply_colormap
 
 MODES = ("results", "gt_eval", "acc_gt_eval", "nocs")
@@ -113,12 +114,13 @@ def make_composite_render(cfg: ExperimentConfig, raster_cfg: RasterConfig,
             h_opac, o_opac = get_opacity(hp)[:, 0], get_opacity(op_)[:, 0]
 
             # hand <-> object nearest distances over active slots only
-            h_d01, _, h_cmap = contacts_mod.contact_map(
-                h_xyz, o_xyz, pt1_valid=h_act, pt2_valid=o_act,
-                cmap_type=cmap_type)
-            o_d01, o_idx, o_cmap = contacts_mod.contact_map(
-                o_xyz, h_xyz, pt1_valid=o_act, pt2_valid=h_act,
-                cmap_type=cmap_type)
+            with trace.span("composite.contacts"):
+                h_d01, _, h_cmap = contacts_mod.contact_map(
+                    h_xyz, o_xyz, pt1_valid=h_act, pt2_valid=o_act,
+                    cmap_type=cmap_type)
+                o_d01, o_idx, o_cmap = contacts_mod.contact_map(
+                    o_xyz, h_xyz, pt1_valid=o_act, pt2_valid=h_act,
+                    cmap_type=cmap_type)
 
             panels = []
             if mode in ("results", "nocs"):  # the full scene's rgb

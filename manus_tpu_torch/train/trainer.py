@@ -66,6 +66,7 @@ from manus_tpu_torch.train.workloads import (
     make_train_step,
     resolve_skin_weights,
 )
+from manus_tpu_torch.utils import trace
 from manus_tpu_torch.utils.camera import index_camera
 from manus_tpu_torch.utils.io import concat_images, dump_image, dump_points
 
@@ -139,10 +140,10 @@ class Trainer:
     """Single-workload trainer (object or hand) on the model's device,
     over a rank mesh when the config's axes ask for one.
 
-    `timings` collects host wall times for the trainer layer's metrics:
-    step_s (one per fit iteration, batch to events), save_s and save_mb
-    (per checkpoint), val_s (per validation), and the two caches' sizes
-    in MiB (image_cache_mb, lpips_cache_mb; 0 when off).
+    `timings["step_s"]` holds the host seconds of each fit iteration,
+    from the batch to the log block, with no synchronise (the benchmark's
+    hand_train driver reads it). The loop's layers are spans of
+    utils/trace.py, recorded when that is enabled.
     """
 
     def __init__(
@@ -195,8 +196,7 @@ class Trainer:
                 f"{m.data_index}, gauss column {m.gauss_index}; loads views "
                 f"{process_local_batch_indices(v, m).tolist()} of each "
                 f"batch of {v}, shard mode {cfg.raster.tile_shard_mode}")
-        self.timings = dict(step_s=[], save_s=[], save_mb=[], val_s=[],
-                            image_cache_mb=0.0, lpips_cache_mb=0.0)
+        self.timings = dict(step_s=[])
         # two LPIPS nets, as in the reference (loss_utils.py:17-19): VGG16
         # for the training loss, AlexNet for the val metric; each falls
         # back to a seeded random-feature net, and val_results.csv says
@@ -273,7 +273,6 @@ class Trainer:
             raw = ds.get_batch(f, all_views)
             rgb.append(np.asarray(raw["rgb"], np.float32))
             mask.append(np.asarray(raw["mask"], np.float32))
-        self.timings["image_cache_mb"] = px * 4 * 4 / MIB
         return (torch.as_tensor(np.stack(rgb), device=self.device),
                 torch.as_tensor(np.stack(mask), device=self.device))
 
@@ -318,7 +317,6 @@ class Trainer:
                     fs = first if f == v == 0 else feats(rgb_all[f, v])
                     for dst, a in zip(cache, fs):
                         dst[f, v] = a
-        self.timings["lpips_cache_mb"] = total_mb
         self.log(f"[lpips] gt-feature cache: {f_n * v_n} images, "
                  f"{total_mb:.0f} MB ({engine})")
         return cache
@@ -372,11 +370,8 @@ class Trainer:
     # ---- training -------------------------------------------------------
     def fit(self, max_steps: Optional[int] = None):
         cfg = self.cfg
-        opts = cfg.model
-        log = self.log
         max_steps = max_steps or cfg.trainer.max_steps
-        t_last = time.time()
-        step_last = 0
+        self._log_mark = (time.time(), 0)
         last_loss = float("inf")
         # a producer thread keeps batches ready (the reference's DataLoader
         # workers)
@@ -384,83 +379,100 @@ class Trainer:
                                 device=self.device)
         try:
             for step in range(max_steps):
-                t_step = time.perf_counter()
-                batch = next(loader)
-                self.state, metrics = self.train_step(self.state, batch)
-
-                densify_due = (
-                    opts.densify
-                    and opts.densify_from_step < step < opts.densify_until_step
-                    and step % opts.densification_interval == 0
-                )
-                reset_due = (
-                    step % opts.opacity_reset_interval == 0 and step != 0
-                ) or (
-                    cfg.dataset.bg_color == "white"
-                    and step == opts.densify_from_step
-                )
-                if densify_due:
-                    # the reference skips densify on mask-prune steps
-                    if bool(self.state.mask_pruned_flag):
-                        log(f"[densify] step {step}: skipped (mask-prune "
-                            f"step)")
-                    else:
-                        self.state, info = self.densify_step(self.state)
-                        log(f"[densify] step {step}: active="
-                            f"{int(info['num_active'])} "
-                            f"clones={int(info['clones'])} "
-                            f"splits={int(info['splits'])} "
-                            f"pruned={int(info['pruned'])} "
-                            f"dropped={int(info['alloc_dropped'])}")
-                        # the one-shot statistical outlier prune, at the
-                        # densify event of remove_outliers_step (reference
-                        # gaussian_utils.py:484, gaussian.py:323-326)
-                        if step == opts.remove_outliers_step:
-                            self.state, n_out = self._remove_outliers()
-                            log(f"[outliers] step {step}: removed {n_out}")
-                if reset_due and step != 0:
-                    self.state = self.opacity_reset(self.state)
-                    log(f"[reset] step {step}: opacity reset")
-
-                if step % cfg.trainer.log_every == 0 or step == max_steps - 1:
-                    now = time.time()
-                    ips = (step - step_last) / max(now - t_last, 1e-9)
-                    t_last, step_last = now, step
-                    last_loss = float(metrics["loss"])
-                    psnr = float(metrics["psnr"])
-                    n_act = int(metrics["num_active"])
-                    self.train_csv.write([step, last_loss, psnr, n_act,
-                                          round(ips, 2)])
-                    scalars = dict(loss=last_loss, psnr=psnr,
-                                   num_active=n_act, iters_per_s=ips)
-                    if cfg.trainer.log_losses:
-                        scalars.update({k: float(v) for k, v in metrics.items()
-                                        if k.startswith("loss/")})
-                    self.loggers.log_scalars(step, scalars)
-                    # ovf: all dropped pairs; far: those the per-tile cap
-                    # dropped (farthest, mostly past early exit)
-                    log(f"step {step}: loss={last_loss:.5f} psnr={psnr:.2f} "
-                        f"active={n_act} it/s={ips:.1f} "
-                        f"maxrad={int(metrics['max_radius'])} "
-                        f"ovf={int(metrics['pair_overflow'])} "
-                        f"far={int(metrics['pair_overflow_far'])}")
-                self.timings["step_s"].append(time.perf_counter() - t_step)
-                val_due = (cfg.trainer.val_every and step > 0
-                           and step % cfg.trainer.val_every == 0)
-                ckpt_due = (cfg.trainer.checkpoint_every and step > 0
-                            and step % cfg.trainer.checkpoint_every == 0)
-                # a checkpoint is val-keyed when held-out data exists, so
-                # "best" resolves on the val metric
-                if val_due or (ckpt_due and self._can_val_key()):
-                    self.validate(step)
-                if ckpt_due:
-                    self.save(step, last_loss)
+                with trace.span("fit.step", step=step):
+                    t_step = time.perf_counter()
+                    with trace.span("fit.batch_wait", seq=loader.n_got):
+                        batch = next(loader)
+                    with trace.span("fit.train_step"):
+                        self.state, metrics = self.train_step(self.state,
+                                                              batch)
+                    self._events(step)
+                    if (step % cfg.trainer.log_every == 0
+                            or step == max_steps - 1):
+                        with trace.span("fit.log"):
+                            last_loss = self._log_step(step, metrics)
+                    self.timings["step_s"].append(time.perf_counter()
+                                                  - t_step)
+                    val_due = (cfg.trainer.val_every and step > 0
+                               and step % cfg.trainer.val_every == 0)
+                    ckpt_due = (cfg.trainer.checkpoint_every and step > 0
+                                and step % cfg.trainer.checkpoint_every == 0)
+                    # a checkpoint is val-keyed when held-out data exists,
+                    # so "best" resolves on the val metric
+                    if val_due or (ckpt_due and self._can_val_key()):
+                        self.validate(step)
+                    if ckpt_due:
+                        self.save(step, last_loss)
         finally:
             loader.close()
         if self._can_val_key():
             self.validate(max_steps)
         self.save(max_steps, last_loss)
         return self.state
+
+    def _events(self, step: int):
+        """The densify event and the opacity reset due after `step`."""
+        cfg, opts, log = self.cfg, self.cfg.model, self.log
+        densify_due = (
+            opts.densify
+            and opts.densify_from_step < step < opts.densify_until_step
+            and step % opts.densification_interval == 0
+        )
+        reset_due = (
+            step % opts.opacity_reset_interval == 0 and step != 0
+        ) or (
+            cfg.dataset.bg_color == "white"
+            and step == opts.densify_from_step
+        )
+        if densify_due:
+            # the reference skips densify on mask-prune steps
+            if bool(self.state.mask_pruned_flag):
+                log(f"[densify] step {step}: skipped (mask-prune step)")
+            else:
+                with trace.span("fit.densify", step=step):
+                    self.state, info = self.densify_step(self.state)
+                log(f"[densify] step {step}: active="
+                    f"{int(info['num_active'])} "
+                    f"clones={int(info['clones'])} "
+                    f"splits={int(info['splits'])} "
+                    f"pruned={int(info['pruned'])} "
+                    f"dropped={int(info['alloc_dropped'])}")
+                # the one-shot statistical outlier prune, at the densify
+                # event of remove_outliers_step (reference
+                # gaussian_utils.py:484, gaussian.py:323-326)
+                if step == opts.remove_outliers_step:
+                    self.state, n_out = self._remove_outliers()
+                    log(f"[outliers] step {step}: removed {n_out}")
+        if reset_due and step != 0:
+            with trace.span("fit.opacity_reset", step=step):
+                self.state = self.opacity_reset(self.state)
+            log(f"[reset] step {step}: opacity reset")
+
+    def _log_step(self, step: int, metrics: dict) -> float:
+        """The log_every row: the CSV, the scalar loggers and the log line
+        (each value read from the device). Returns the step's loss."""
+        now = time.time()
+        t_last, step_last = self._log_mark
+        ips = (step - step_last) / max(now - t_last, 1e-9)
+        self._log_mark = (now, step)
+        loss = float(metrics["loss"])
+        psnr = float(metrics["psnr"])
+        n_act = int(metrics["num_active"])
+        self.train_csv.write([step, loss, psnr, n_act, round(ips, 2)])
+        scalars = dict(loss=loss, psnr=psnr, num_active=n_act,
+                       iters_per_s=ips)
+        if self.cfg.trainer.log_losses:
+            scalars.update({k: float(v) for k, v in metrics.items()
+                            if k.startswith("loss/")})
+        self.loggers.log_scalars(step, scalars)
+        # ovf: all dropped pairs; far: those the per-tile cap dropped
+        # (farthest, mostly past early exit)
+        self.log(f"step {step}: loss={loss:.5f} psnr={psnr:.2f} "
+                 f"active={n_act} it/s={ips:.1f} "
+                 f"maxrad={int(metrics['max_radius'])} "
+                 f"ovf={int(metrics['pair_overflow'])} "
+                 f"far={int(metrics['pair_overflow_far'])}")
+        return loss
 
     def _can_val_key(self):
         return self.val_dataset is not None and bool(
@@ -517,7 +529,6 @@ class Trainer:
 
     def validate(self, step: int, num_views: int = 2,
                  dump_artifacts: bool = True):
-        t_val = time.perf_counter()
         log = self.log
         ds = self.val_dataset
         if ds is None:
@@ -572,7 +583,6 @@ class Trainer:
             step, {"val/psnr": float(np.mean(psnrs)),
                    "val/ssim": float(np.mean(ssims)),
                    "val/lpips": float(np.mean(lpipss))})
-        self.timings["val_s"].append(time.perf_counter() - t_val)
         return np.mean(psnrs)
 
     def _dump_gaussians(self, out, results_dir: str, step: int):
@@ -607,7 +617,6 @@ class Trainer:
         return path
 
     def _save(self, step: int, loss: float):
-        t0 = time.perf_counter()
         extra = dict(num_active=np.asarray(
             int(self.state.model.active.sum()), np.int32))
         if self.voxel_grid is not None:
@@ -621,8 +630,6 @@ class Trainer:
                     else None)
         path = ckpt_mod.save_checkpoint(self.ckpt_dir, self.state, step, loss,
                                         extra=extra, val_psnr=val_psnr)
-        self.timings["save_s"].append(time.perf_counter() - t0)
-        self.timings["save_mb"].append(os.path.getsize(path) / MIB)
         return path
 
     def load(self, path: Optional[str] = None):

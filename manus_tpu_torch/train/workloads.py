@@ -47,6 +47,7 @@ from manus_tpu_torch.parallel.mesh import gauss_rows
 from manus_tpu_torch.train import lpips as lpips_mod
 from manus_tpu_torch.train import optim as optim_mod
 from manus_tpu_torch.utils import losses as loss_mod
+from manus_tpu_torch.utils import trace
 from manus_tpu_torch.utils.camera import index_camera
 
 
@@ -253,40 +254,12 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
             psnr=head[0, 0], max_radius=head[:, 1].max().to(torch.int32))
         return loss, g_params, g_sw, g_m2d, aux
 
-    def train_step(state: TrainState, batch):
-        v = batch["rgb"].shape[0]
-        model = state.model
+    def update(state: TrainState, batch, loss, g_params, g_sw, g_m2d, aux,
+               do_stats: bool):
+        """Adam, the mask prune and the densify statistics: the new state
+        and the step's metrics."""
+        model, step = state.model, state.step
         n = model.capacity
-        step = state.step
-        # this rank's block of the gaussians (all of them without a mesh)
-        rows = slice(0, n) if mesh is None else gauss_rows(n, mesh)
-        skin_w = resolve_skin_weights(model, voxel_grid)
-        skin_w = None if skin_w is None else skin_w[rows]
-        params = GaussianParams(*(p[rows].detach().requires_grad_(True)
-                                  for p in model.params))
-        m2d = torch.zeros(v, n, 2, device=model.active.device,
-                          requires_grad=True)
-        leaves = [*params, m2d]
-        if train_sw:
-            skin_w = skin_w.detach().requires_grad_(True)
-            leaves.append(skin_w)
-        # the start_lpips_iter gate (reference base.py:333-341)
-        lpips_on = step >= opts.start_lpips_iter
-        loss, aux = loss_fn(params, m2d, model.active[rows], skin_w, batch,
-                            lpips_on, model.active)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for g, x in zip(grads, leaves)]
-        # loss averages the views: rescale to per-view-loss gradients, so
-        # densify thresholds do not depend on the number of views
-        g_m2d = grads[len(params)] * v
-        g_sw = grads[-1] if train_sw else None
-        g_params = GaussianParams(*grads[:len(params)])
-        do_stats = step < opts.densify_until_step
-        if mesh is not None:
-            loss, g_params, g_sw, g_m2d, aux = _reduce_over_mesh(
-                loss.detach(), g_params, g_sw, g_m2d, aux, do_stats)
-
         lrs = optim_mod.group_learning_rates(opts, step)
         new_params, new_opt = optim_mod.adam_update(
             model.params, g_params, state.opt, lrs, model.active)
@@ -366,6 +339,45 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
             skin_opt=new_skin_opt,
         )
         return new_state, metrics
+
+    def train_step(state: TrainState, batch):
+        v = batch["rgb"].shape[0]
+        model = state.model
+        n = model.capacity
+        step = state.step
+        # this rank's block of the gaussians (all of them without a mesh)
+        rows = slice(0, n) if mesh is None else gauss_rows(n, mesh)
+        skin_w = resolve_skin_weights(model, voxel_grid)
+        skin_w = None if skin_w is None else skin_w[rows]
+        params = GaussianParams(*(p[rows].detach().requires_grad_(True)
+                                  for p in model.params))
+        m2d = torch.zeros(v, n, 2, device=model.active.device,
+                          requires_grad=True)
+        leaves = [*params, m2d]
+        if train_sw:
+            skin_w = skin_w.detach().requires_grad_(True)
+            leaves.append(skin_w)
+        # the start_lpips_iter gate (reference base.py:333-341)
+        lpips_on = step >= opts.start_lpips_iter
+        do_stats = step < opts.densify_until_step
+        with trace.span("step.forward"):
+            loss, aux = loss_fn(params, m2d, model.active[rows], skin_w,
+                                batch, lpips_on, model.active)
+        with trace.span("step.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g
+                     for g, x in zip(grads, leaves)]
+            # loss averages the views: rescale to per-view-loss gradients,
+            # so densify thresholds do not depend on the number of views
+            g_m2d = grads[len(params)] * v
+            g_sw = grads[-1] if train_sw else None
+            g_params = GaussianParams(*grads[:len(params)])
+            if mesh is not None:
+                loss, g_params, g_sw, g_m2d, aux = _reduce_over_mesh(
+                    loss.detach(), g_params, g_sw, g_m2d, aux, do_stats)
+        with trace.span("step.update"):
+            return update(state, batch, loss, g_params, g_sw, g_m2d, aux,
+                          do_stats)
 
     return train_step
 
