@@ -8,7 +8,7 @@ on BRICS captures read from disk, and sharded training over ranks.
 Phases, each of which exits non-zero on failure:
 
   1. build: nvcc compiles manus_tpu_torch/csrc/*.cu (composite, conv3x3,
-     lpips_head) for sm_90a into manus_tpu_torch/_build/ (one nvcc per
+     lpips_head, knn) for sm_90a into manus_tpu_torch/_build/ (one nvcc per
      source, in parallel, beside g++ for the host assembly of
      csrc/image_ops.cpp); ptxas's report of every library, read from the
      log kept beside it (also for one built earlier), must show no spill;
@@ -172,6 +172,20 @@ Phases, each of which exits non-zero on failure:
      view's get_batch ms from capture/ beside the write_tree capture's.
      The captures, checkpoints and PLYs are deleted afterwards.
 
+ 14. knn (runs after 7 and before 8): the contact search kernel
+     (csrc/knn.cu) at the composite's shape, KNN_POINTS queries against
+     KNN_POINTS references of which KNN_VALID are valid, hand-scale
+     clouds with a third of the references within a few mm of a query:
+     CONTACT_ROWS rows against float64 on the card (the expansion's
+     bound, the exact nearest where it is unique), the plain blockwise
+     path on the same card (the same bound), equal bits under one slice
+     and under knn_plan's; the kernel's ms (CUDA events over KNN_REPS
+     launches), the plain path's, one slice's, and the bound of its 3
+     FFMA a pair at FP32_FLOP_PER_S; ptxas's registers and spills and
+     the search kernel's SASS (FFMA, FMNMX and the instructions of a
+     pair in its run loop, from cuobjdump). Phase 10 counts its launches,
+     two a frame at least.
+
  13. parallel: the sharded training path (manus_tpu_torch/parallel/).
      (a) The composite kernels' tile-id form on the bench scene's view at
      each of PAR_SHAPES (512x512 and 1280x720) with PAR_G owners: each
@@ -249,6 +263,7 @@ from manus_tpu_torch.models.gaussians import (
     init_gaussian_model,
 )
 from manus_tpu_torch.ops import conv as conv_mod
+from manus_tpu_torch.ops import knn as knn_mod
 from manus_tpu_torch.ops import outliers
 from manus_tpu_torch.ops.contacts import CONTACT_THRESHOLD, contact_map
 from manus_tpu_torch.ops.rasterizer import api as api_mod
@@ -514,6 +529,10 @@ FORMS_STEPS, FORMS_LPIPS_FROM, FORMS_LZF_REPS = 30, 10, 20
 # MANO's 778 give 49,000) and its posed frames (the CPU's contacts, its
 # reference, take ~2 s a frame)
 CONTACT_ROWS, BASELINE_LEVEL, BASELINE_FRAMES = 4096, 2, 4
+# The contact search at the composite's shape (phase 14): the hand's and
+# the object's slots, the share of the references that are valid, and
+# the kernel's timed launches.
+KNN_POINTS, KNN_VALID, KNN_REPS = 131072, 0.9, 20
 REPLACES = {
     "composite_fwd": "manus_tpu/ops/rasterizer/pallas_backend.py:105",
     "composite_bwd": "manus_tpu/ops/rasterizer/pallas_backend.py:258",
@@ -542,6 +561,8 @@ COUNTERS = {
     "lpips_head_bwd": conv_mod.head_bwd_cuda,
     "conv3x3": conv_mod.conv3x3_image_cuda,
 }
+# Every count _run_cli reads: the kernels' above and the search kernel's.
+COUNTED = (*COUNTERS, "nearest_neighbor")
 # Launches per view and step of each kernel on the LPIPS step.
 PER_STEP = {"composite_fwd": 1, "composite_bwd": 1, "conv3x3_layout": 13,
             "conv3x3_layout_dx": 13, "lpips_head_fwd": 5, "lpips_head_bwd": 5,
@@ -997,6 +1018,145 @@ def kernel_phase(pay, bins, spread_pay, spread_bins, dev):
                               plain_ms=bwd_plain_ms, bound_ms=bwd_bound,
                               bound_by=bwd_by),
     }
+
+
+def knn_clouds(n, m, dev, seed=0):
+    """A query and a reference cloud at the hand's scale on the card, a
+    third of the references within a few mm of a query, and KNN_VALID of
+    the references valid."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    centre = torch.tensor([0.1, 0.2, 0.05], device=dev)
+    x = (torch.rand(n, 3, device=dev, generator=gen) - 0.5) * 0.3 + centre
+    y = (torch.rand(m, 3, device=dev, generator=gen) - 0.5) * 0.3 + centre
+    k = m // 3
+    near = torch.randint(0, n, (k,), device=dev, generator=gen)
+    y[:k] = x[near] + 0.002 * torch.randn(k, 3, device=dev, generator=gen)
+    valid = torch.rand(m, device=dev, generator=gen) < KNN_VALID
+    return x, y, valid
+
+
+def nn_reference(x, y, valid, dist, idx, rows):
+    """A search's (dist, idx) on `rows` held to float64 on the card:
+    |d - d_exact| <= min(sqrt(eps), eps / (d + d_exact)), eps = 8 u (|x|
+    + max |y|)^2, and idx the exact nearest wherever it beats the second
+    by more than 2 eps in d^2. Returns (largest error over its bound,
+    share of rows with a unique nearest)."""
+    xs, ys = x[rows].double(), y.double()
+    best, second, arg = [], [], []
+    for i in range(0, len(rows), 256):
+        d2 = ((xs[i:i + 256, None, :] - ys[None]) ** 2).sum(-1)
+        d2[:, ~valid] = math.inf
+        top = torch.topk(d2, 2, dim=1, largest=False)
+        best.append(top.values[:, 0])
+        second.append(top.values[:, 1])
+        arg.append(top.indices[:, 0])
+    best, second, arg = torch.cat(best), torch.cat(second), torch.cat(arg)
+    eps = 8 * 2.0 ** -24 * (xs.norm(dim=1) + ys[valid].norm(dim=1).max()) ** 2
+    d_exact, d = best.sqrt(), dist[rows].double()
+    bound = torch.minimum(eps.sqrt(), eps / (d + d_exact).clamp(
+        min=1e-30)) + 1e-12
+    excess = ((d - d_exact).abs() / bound).max().item()
+    unique = second - best > 2 * eps
+    check(bool((idx[rows].long()[unique] == arg[unique]).all()),
+          "knn: a nearest index differs from float64's")
+    return excess, unique.double().mean().item()
+
+
+def sass_report(lib_path, kernel="knn_search_kernel"):
+    """Opcode counts of `kernel` in a library's SASS (cuobjdump -sass),
+    and its run loop's: the loop (a backward branch's span) with the most
+    FMNMX, one a pair, and its instructions a pair. None without
+    cuobjdump."""
+    tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    ins, inside = [], False  # (address, opcode, operands)
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)(.*?);", line)
+        if inside and m:
+            ins.append((int(m.group(1), 16), m.group(2).split(".")[0],
+                        m.group(3)))
+    ops = [op for _, op, _ in ins]
+    report = {"instructions": len(ops),
+              **{op: ops.count(op) for op in ("FFMA", "FMNMX", "LDS")}}
+    loops = []
+    for addr, op, args in ins:
+        target = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
+        if target and int(target.group(1), 16) <= addr:
+            body = [o for a, o, _ in ins
+                    if int(target.group(1), 16) <= a <= addr]
+            loops.append((body.count("FMNMX"), -len(body), body))
+    if loops:
+        pairs, _, body = max(loops)
+        report.update(loop_instructions=len(body), loop_pairs=pairs,
+                      loop_FFMA=body.count("FFMA"),
+                      per_pair=len(body) / max(pairs, 1))
+    return report
+
+
+def knn_phase(dev, ptxas_log):
+    """The contact search kernel at the composite's shape (docstring
+    phase 14). ptxas_log: the build's output for csrc/knn.cu."""
+    n = m = KNN_POINTS
+    x, y, valid = knn_clouds(n, m, dev)
+    plan = knn_mod.knn_plan(n, m, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    one = knn_mod.KnnPlan(plan.query_blocks, 1, m)
+    dist, idx = knn_mod.nearest_neighbor_cuda(x, y, valid)
+    d1, i1 = knn_mod.nearest_neighbor_cuda(x, y, valid, plan=one)
+    check(torch.equal(dist, d1) and torch.equal(idx, i1),
+          f"knn: one slice and {plan.slices} give other bits")
+    with torch.no_grad():
+        d_p, i_p = knn_mod.nearest_neighbor_torch(x, y, pt2_valid=valid)
+    gen = torch.Generator().manual_seed(1)
+    near = torch.nonzero(dist < CONTACT_THRESHOLD).reshape(-1).cpu()
+    near = near[torch.randperm(len(near), generator=gen)[:CONTACT_ROWS // 2]]
+    rest = torch.randperm(n, generator=gen)[:CONTACT_ROWS - len(near)]
+    rows = torch.cat([near, rest]).to(dev)
+    excess, unique = nn_reference(x, y, valid, dist, idx, rows)
+    p_excess, _ = nn_reference(x, y, valid, d_p, i_p, rows)
+    check(excess <= 1.0, f"knn: the kernel is {excess:.3f} of its bound "
+          "from float64")
+    check(p_excess <= 1.0, f"knn: the plain path is {p_excess:.3f} of its "
+          "bound from float64")
+    same_idx = (idx == i_p).double().mean().item()
+    diff = (dist - d_p).abs().max().item()
+
+    ms = cuda_ms(lambda: knn_mod.nearest_neighbor_cuda(x, y, valid),
+                 KNN_REPS)
+    one_ms = cuda_ms(lambda: knn_mod.nearest_neighbor_cuda(x, y, valid,
+                                                           plan=one), 5)
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: knn_mod.nearest_neighbor_torch(
+            x, y, pt2_valid=valid), 2)
+    # 3 FFMA a pair, 2 operations each; the bytes: both clouds read once,
+    # dist and idx written once
+    bound, by_bytes, by_ops = bound_ms(12 * (n + m) + m + 8 * n, 6 * n * m,
+                                       FP32_FLOP_PER_S)
+    ptxas = [ln.strip() for ln in ptxas_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    sass = sass_report(cuda_build.library_path("knn"))
+    print(f"knn: {n} x {m} ({int(valid.sum())} valid), plan {plan}: kernel "
+          f"{ms:.4f} ms (one slice {one_ms:.4f}), plain {plain_ms:.3f} ms, "
+          f"bound {bound:.4f} ms (3 FFMA a pair at {FP32_FLOP_PER_S:.3g} "
+          f"FLOP/s; bytes {by_bytes:.4f}), {ms / bound:.2f}x the bound; "
+          f"{CONTACT_ROWS} rows against float64: kernel {excess:.3f}, plain "
+          f"{p_excess:.3f} of the bound, {unique:.4f} with a unique nearest; "
+          f"against the plain path: {same_idx:.6f} of the indices equal, "
+          f"largest |d| gap {diff:.3e}")
+    print(f"knn ptxas: {ptxas}")
+    print(f"knn SASS (knn_search_kernel): {sass}")
+    return {"nearest_neighbor": dict(
+        max_abs_err=diff, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by="operations" if by_ops >= by_bytes else "bytes",
+        one_slice_ms=one_ms, sass=sass)}
 
 
 def composite_bounds(n_walk):
@@ -1616,13 +1776,14 @@ class Tee:
 
 
 def _run_cli(argv):
-    """cli.main(argv) with every kernel count set to 0 just before and
-    read just after. Returns (trainer, {kernel: launches}, log lines,
+    """cli.main(argv) with every kernel count (the search kernel's too,
+    as "nearest_neighbor") set to 0 just before and read just after. Returns (trainer, {kernel: launches}, log lines,
     peak device MiB, wall s)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in COUNTERS.values():
         fn.launches = 0
+    knn_mod.nearest_neighbor_cuda.launches = 0
     tee = Tee(sys.stdout)
     sys.stdout = tee
     t0 = time.perf_counter()
@@ -1633,6 +1794,7 @@ def _run_cli(argv):
         sys.stdout = tee.out
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    launches["nearest_neighbor"] = knn_mod.nearest_neighbor_cuda.launches
     return (tr, launches, tee.lines,
             torch.cuda.max_memory_allocated() / 2**20, wall)
 
@@ -1963,7 +2125,7 @@ def composite_phase(dev, hand_run_dir):
           "of the contact panel")
     ckpts = [f"hand_ckpt_dir={hand_ckpts}", f"object_ckpt_dir={placed}"]
 
-    total = {name: 0 for name in COUNTERS}
+    total = dict.fromkeys(COUNTED, 0)
     runs = {}
     n_gt = COMPOSITE_FRAMES * COMPOSITE_VIEWS
     for exp, mode, extra in COMPOSITE_RUNS:
@@ -1990,6 +2152,9 @@ def composite_phase(dev, hand_run_dir):
         check(launches["composite_bwd"] == steps,
               f"composite {mode}: composite_bwd launched "
               f"{launches['composite_bwd']} times, not {steps}")
+        check(launches["nearest_neighbor"] >= 2 * frames,
+              f"composite {mode}: the search kernel launched "
+              f"{launches['nearest_neighbor']} times for {frames} frames")
         check(all(launches[n] == 0 for n in COUNTERS
                   if not n.startswith("composite")),
               f"composite {mode}: an LPIPS kernel ran")
@@ -3519,7 +3684,7 @@ def parallel_phase(cfg, model, batch, dev):
     runs = [shared_card_ranks(2, PAR_RUNS[:1], step_check=True),
             shared_card_ranks(4, PAR_RUNS[1:], step_check=False)]
     t_b = time.perf_counter() - t0
-    launches = {name: 0 for name in COUNTERS}
+    launches = dict.fromkeys(COUNTED, 0)
     for ranks, (name, n_data, n_gauss, mode, views) in zip(runs, PAR_RUNS):
         world = n_data * n_gauss
         r0 = ranks[0]
@@ -3583,8 +3748,8 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    # the three kernel sources (nvcc) and the host assembly (g++)
-    names = ["composite", "conv3x3", "lpips_head", "image_ops"]
+    # the four kernel sources (nvcc) and the host assembly (g++)
+    names = ["composite", "conv3x3", "lpips_head", "knn", "image_ops"]
     cached = [n for n in names if cuda_build.library_path(n).exists()
               and cuda_build.log_path(n).exists()]
     logs = cuda_build.build(names)
@@ -3627,6 +3792,7 @@ def main() -> int:
           f"(median {lpips_step_ms:.3f} with LPIPS, {plain_step_ms:.3f} "
           "without)")
     launches.update({n: lpips_launches[n] for n in lpips_results})
+    results.update(knn_phase(dev, logs["knn"]))
 
     flagship_ms = flagship_phase(dev)
     print(f"flagship step: median {flagship_ms:.3f} ms (the primary plain "
@@ -3672,7 +3838,11 @@ def main() -> int:
              replaces=REPLACES[name], launches=launches[name],
              **{"library_ms": None, **results[name]})
         for name in COUNTERS
-    ]
+    ] + [dict(name="nearest_neighbor", route="cuda",
+              source="manus_tpu_torch/csrc/knn.cu",
+              replaces="none (the JAX package's nearest_neighbor is plain "
+                       "JAX)", launches=comp_launches["nearest_neighbor"],
+              library_ms=None, **results["nearest_neighbor"])]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,12 @@ contact signal and colours, the NOCS colour grid over the canonical hand,
 and IoU/F1 of contact masks (the reference's gaussian_utils.py:50-98,
 514-577 and get_iou_ours.py:162-232).
 
-The nearest neighbours are ops/knn.nearest_neighbor: blockwise
-|x|^2 + |y|^2 - 2 x.y in full float32, whatever the caller's TF32
-setting. Near contact the expansion is ill-conditioned: at the hand's
-scale (|x|^2 ~ 1e-2 m^2) float32 leaves an error of ~1e-9 on d^2, so a
+The nearest neighbours are ops/knn.nearest_neighbor, |x|^2 + |y|^2 -
+2 x.y in full float32 whatever the caller's TF32 setting: on a card the
+search kernel of csrc/knn.cu (one pass, no distance matrix in device
+memory, float32 FMAs), on the CPU the plain blockwise version. Near
+contact the expansion is ill-conditioned: at the hand's scale (|x|^2 ~
+1e-2 m^2) float32 leaves an error of ~1e-9 on d^2 on either path, so a
 distance under ~1e-4 m is known to no better than ~3e-5 m.
 """
 from __future__ import annotations

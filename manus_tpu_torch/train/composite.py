@@ -11,7 +11,8 @@ layouts, panels side by side:
   nocs:        [rgb | nocs hand | nocs object]
 
 Contacts are ops/contacts.contact_map in both directions over active
-slots; the running sum stays a [N_hand] tensor on the device. Every
+slots (on the card, one launch of the search kernel of csrc/knn.cu
+each); the running sum stays a [N_hand] tensor on the device. Every
 panel is one render_gaussians call, so one composite forward launch on
 the card.
 """

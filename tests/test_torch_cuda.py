@@ -598,8 +598,9 @@ def _contact_clouds(seed, n=3000, m=4000):
 
 
 def test_cuda_contact_map_matches_cpu(dev):
-    """contact_map on the card (cuBLAS, TF32 off) against the CPU's: the
-    distance expansion's conditioning bound of
+    """contact_map on the card (the search kernel of csrc/knn.cu, float32
+    FMAs) against the CPU's (the plain blockwise path): the distance
+    expansion's conditioning bound of
     tests/test_torch_colormap_contacts.py (|d_a - d_b| <= min(sqrt(2 eps),
     2 eps / (d_a + d_b)), eps = 8 u (|x| + |y|)^2), indices equal where
     the float64 neighbour wins by more than 4 eps in d^2; and so whatever
@@ -631,6 +632,197 @@ def test_cuda_contact_map_matches_cpu(dev):
     unique = part[:, 1] - part[:, 0] > 4 * eps
     np.testing.assert_array_equal(i_g.cpu().numpy()[unique],
                                   i_c.numpy()[unique])
+
+
+# --- The contact search kernel (csrc/knn.cu) against float64 on the card.
+
+def _nn_float64(x, y, valid):
+    """The exact nearest of each row of x among the valid rows of y, in
+    float64 on the card: (d^2, its index, the second d^2), the index the
+    lowest among equal d^2."""
+    xd, yd = x.double(), y.double()
+    best, arg, second = [], [], []
+    for i in range(0, len(x), 1024):
+        d2 = ((xd[i:i + 1024, None] - yd[None]) ** 2).sum(-1)
+        if valid is not None:
+            d2[:, ~valid] = math.inf
+        top = torch.topk(d2, min(2, len(y)), dim=1, largest=False,
+                         sorted=True).values
+        b = top[:, 0]
+        best.append(b)
+        second.append(top[:, 1] if len(y) > 1 else torch.full_like(
+            b, math.inf))
+        # the lowest index reaching the minimum (topk's order is not)
+        hit = d2 == b[:, None]
+        arg.append(torch.where(hit.any(1), hit.int().argmax(1), 0))
+    return torch.cat(best), torch.cat(arg), torch.cat(second)
+
+
+def _assert_nn_close(x, y, valid, dist, idx):
+    """dist within the expansion's bound of the exact distance, |d - d_e|
+    <= min(sqrt(eps), eps / (d + d_e)) with eps = 8 u (|x| + max |y|)^2
+    (tests/test_torch_colormap_contacts.py), and idx the exact nearest
+    wherever it beats the second by more than 2 eps in d^2."""
+    best, arg, second = _nn_float64(x, y, valid)
+    ys = y if valid is None else y[valid]
+    eps = 8 * 2.0 ** -24 * (x.double().norm(dim=1)
+                            + ys.double().norm(dim=1).max()) ** 2
+    d_e, d = best.sqrt(), dist.double()
+    bound = torch.minimum(eps.sqrt(), eps / (d + d_e).clamp(min=1e-30))
+    assert ((d - d_e).abs() <= bound + 1e-12).all()
+    unique = second - best > 2 * eps
+    # (a lone query has a third of the references within a few mm)
+    assert unique.double().mean() > 0.5 or len(x) < 100
+    assert torch.equal(idx.long()[unique], arg[unique])
+    if valid is not None:
+        assert valid[idx.long()].all()
+
+
+def _knn_clouds(n, m, seed):
+    """A query and a reference cloud at the hand's scale, a third of the
+    references within a few mm of a query (_contact_clouds' shape)."""
+    rng = np.random.RandomState(seed)
+    a = rng.uniform(-0.15, 0.15, (n, 3)) + np.array([0.1, 0.2, 0.05])
+    b = rng.uniform(-0.15, 0.15, (m, 3)) + np.array([0.1, 0.2, 0.05])
+    k = m // 3
+    b[:k] = a[rng.randint(0, n, k)] + rng.normal(0, 0.002, (k, 3))
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+# (n, m): ragged against the kernel's 2,048-query blocks, 256-reference
+# tiles and 32-reference runs, one and several slices, and the voxel
+# grid's keypoint form
+KNN_CASES = [(1, 1), (31, 31), (1000, 1000), (4097, 4097), (131072, 4000),
+             (1, 4097), (4097, 31), (70001, 20)]
+
+
+@pytest.mark.parametrize("n,m", KNN_CASES,
+                         ids=[f"{n}x{m}" for n, m in KNN_CASES])
+def test_cuda_nearest_neighbor_matches_float64(dev, n, m):
+    from manus_tpu_torch.ops import knn
+
+    x, y = _knn_clouds(n, m, n + m)
+    x, y = torch.tensor(x, device=dev), torch.tensor(y, device=dev)
+    valid = torch.tensor(np.random.RandomState(m).rand(m) > 0.1, device=dev)
+    valid[0] = True
+    for pv in (None, valid):
+        dist, idx = knn.nearest_neighbor(x, y, pt2_valid=pv)
+        assert dist.dtype == torch.float32 and idx.dtype == torch.int32
+        assert dist.shape == idx.shape == (n,)
+        _assert_nn_close(x, y, pv, dist, idx)
+
+
+def test_cuda_nearest_neighbor_without_valid_references(dev):
+    """Rows with no valid reference get (inf, 0), as the plain path
+    gives; with a single valid one, that one at its distance."""
+    from manus_tpu_torch.ops import knn
+
+    x, y = _knn_clouds(3000, 5000, 7)
+    x, y = torch.tensor(x, device=dev), torch.tensor(y, device=dev)
+    none = torch.zeros(5000, dtype=torch.bool, device=dev)
+    dist, idx = knn.nearest_neighbor(x, y, pt2_valid=none)
+    assert torch.isinf(dist).all() and (idx == 0).all()
+    d_c, i_c = knn.nearest_neighbor(x.cpu(), y.cpu(), pt2_valid=none.cpu())
+    assert torch.isinf(d_c).all() and (i_c == 0).all()
+    one = none.clone()
+    one[4321] = True
+    dist, idx = knn.nearest_neighbor(x, y, pt2_valid=one)
+    assert (idx == 4321).all()
+    _assert_nn_close(x, y, one, dist, idx)
+
+
+def test_cuda_nearest_neighbor_ties_go_to_the_lowest_index(dev):
+    """Integer coordinates (every value exact in float32) and each
+    reference repeated at several places, across runs, tiles and slices:
+    the lowest index among the exactly nearest, under every plan."""
+    from manus_tpu_torch.ops import knn
+
+    rng = np.random.RandomState(3)
+    base = rng.randint(-40, 40, (700, 3))
+    y = np.concatenate([base, base[rng.permutation(700)], base[:300],
+                        base[::-1]]).astype(np.float32)
+    x = rng.randint(-45, 45, (5000, 3)).astype(np.float32)
+    x[:700] = base  # distance 0, several copies each
+    xt, yt = torch.tensor(x, device=dev), torch.tensor(y, device=dev)
+    d2 = ((x[:, None].astype(np.int64) - y[None].astype(np.int64)) ** 2
+          ).sum(-1)
+    want_idx = d2.argmin(1)  # numpy: the first of equal minima
+    want_d = np.sqrt(d2.min(1)).astype(np.float32)
+    m = len(y)
+    plans = [knn.knn_plan(len(x), m)] + [
+        knn.KnnPlan(3, s, -(-m // s)) for s in (1, 2, 5, 7)]
+    for plan in plans:
+        dist, idx = knn.nearest_neighbor_cuda(xt, yt, plan=plan)
+        np.testing.assert_array_equal(idx.cpu().numpy(), want_idx)
+        np.testing.assert_array_equal(dist.cpu().numpy(), want_d)
+
+
+def test_cuda_nearest_neighbor_same_bits_across_slices_and_tf32(dev):
+    """One search under plans of 1 to 9 slices, and with TF32 allowed
+    and not: the same bits (the kernel's float32 FMAs read no flag)."""
+    from manus_tpu_torch.ops import knn
+
+    x, y = _knn_clouds(4097, 20000, 11)
+    x, y = torch.tensor(x, device=dev), torch.tensor(y, device=dev)
+    valid = torch.tensor(np.random.RandomState(2).rand(20000) > 0.1,
+                         device=dev)
+    n, m = x.shape[0], y.shape[0]
+    ref_d, ref_i = knn.nearest_neighbor_cuda(
+        x, y, valid, plan=knn.KnnPlan(3, 1, m))
+    for s in (2, 3, 6, 9):
+        d, i = knn.nearest_neighbor_cuda(x, y, valid,
+                                         plan=knn.KnnPlan(3, s, -(-m // s)))
+        assert torch.equal(d, ref_d) and torch.equal(i, ref_i), s
+    prev = torch.backends.cuda.matmul.allow_tf32
+    for tf32 in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_float32_matmul_precision("high" if tf32 else "highest")
+        try:
+            d, i = knn.nearest_neighbor(x, y, pt2_valid=valid)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+            torch.set_float32_matmul_precision("highest")
+        assert torch.equal(d, ref_d) and torch.equal(i, ref_i), tf32
+    _assert_nn_close(x, y, valid, ref_d, ref_i)
+
+
+def test_cuda_nearest_neighbor_counts_launches_and_checks_inputs(dev):
+    """One launch a call, whatever the plan; the library's shape is the
+    plan's; the wrapper refuses what the kernel does not take."""
+    import ctypes
+
+    from manus_tpu_torch.ops import knn
+
+    lib = knn.knn_library()
+    cfg = (ctypes.c_int * 5)()
+    lib.knn_config(cfg)
+    assert list(cfg) == [knn.KNN_THREADS, knn.KNN_QUERIES, knn.KNN_TILE,
+                         32, knn.KNN_CTAS_PER_SM]
+    ctas = ctypes.c_int(0)
+    assert lib.knn_occupancy(ctypes.byref(ctas)) == 0
+    assert ctas.value >= knn.KNN_CTAS_PER_SM
+    x = torch.rand(5000, 3, device=dev)
+    y = torch.rand(3000, 3, device=dev)
+    before = knn.nearest_neighbor_cuda.launches
+    knn.nearest_neighbor(x, y)
+    assert knn.nearest_neighbor_cuda.launches == before + 1
+    knn.nearest_neighbor_cuda(x, y, plan=knn.KnnPlan(3, 2, 1500))
+    assert knn.nearest_neighbor_cuda.launches == before + 2
+    with pytest.raises(ValueError, match="float32"):
+        knn.nearest_neighbor_cuda(x.double(), y)
+    with pytest.raises(ValueError, match="contiguous"):
+        knn.nearest_neighbor_cuda(x.t().contiguous().t(), y)
+    with pytest.raises(ValueError, match="pt2_valid"):
+        knn.nearest_neighbor_cuda(x, y, torch.ones(3000, device=dev))
+    with pytest.raises(ValueError, match="does not cover"):
+        knn.nearest_neighbor_cuda(x, y, plan=knn.KnnPlan(3, 2, 1000))
+    with pytest.raises(ValueError, match="pt2"):
+        knn.nearest_neighbor_cuda(x, y.cpu())
+    # a transposed view through nearest_neighbor is made contiguous
+    d, i = knn.nearest_neighbor(x.t().contiguous().t(), y)
+    d0, i0 = knn.nearest_neighbor(x, y)
+    assert torch.equal(d, d0) and torch.equal(i, i0)
+    assert knn.nearest_neighbor_cuda.launches == before + 4
 
 
 def test_cuda_composite_results_panels_match_plain(dev):
