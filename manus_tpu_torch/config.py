@@ -109,6 +109,8 @@ class LossConfig:
 
 @dataclasses.dataclass
 class RasterOptions:
+    # max tiles per gaussian in binning; 0 keeps every pair (graphdeco's
+    # rule: no cut, no budget, no per-tile cap)
     tg_max: int = 64
     chunk: int = 64  # pairs per chunk of the plain torch composite
     pallas_chunk: int = 128  # the JAX package's; kept so snapshots load

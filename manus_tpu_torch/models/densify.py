@@ -28,6 +28,7 @@ from manus_tpu_torch.train.optim import (
     reset_moments_leaf,
     reset_moments_rows,
 )
+from manus_tpu_torch.utils import trace
 from manus_tpu_torch.utils.transforms import build_rotation
 
 
@@ -172,14 +173,21 @@ def densify_and_prune(
     # moments are zeroed on written rows and rows whose activity flipped;
     # surviving rows, clone parents included, keep theirs
     new_opt = reset_moments_rows(opt_state, (new_active != active) | written)
+    clone_lost = clone_mask & ~clone_ok
+    split_lost = split_mask & ~split_ok
     info = dict(
         clones=clone_ok.sum(),
         splits=split_ok.sum(),
         pruned=prune.sum(),
-        alloc_dropped=(clone_mask & ~clone_ok).sum()
-        + (split_mask & ~split_ok).sum(),
+        alloc_dropped=clone_lost.sum() + split_lost.sum(),
         num_active=new_active.sum(),
     )
+    # children, a split's two each counted (summed when the counters are
+    # read)
+    trace.count("densify.children_written", info["clones"], info["splits"],
+                info["splits"])
+    trace.count("densify.children_dropped", clone_lost, split_lost,
+                split_lost)
     out = GaussianModel(params=new_params, active=new_active,
                         skin_weights=new_sw)
     return out, new_opt, init_stats(cap, active.device), info

@@ -36,6 +36,7 @@ import torch
 from manus_tpu_torch.ops.rasterizer import composite as composite_mod
 from manus_tpu_torch.ops.rasterizer import oracle as oracle_mod
 from manus_tpu_torch.ops.rasterizer.binning import (
+    TileBins,
     bin_gaussians,
     tile_owner_tables,
 )
@@ -51,6 +52,7 @@ from manus_tpu_torch.parallel.collectives import (
     group_rank,
 )
 from manus_tpu_torch.utils import sh as sh_mod
+from manus_tpu_torch.utils import trace
 from manus_tpu_torch.utils.camera import Camera
 
 BACKENDS = ("cuda", "torch", "oracle")
@@ -60,7 +62,9 @@ TILE_SHARD_MODES = ("owner", "pairslice", "hybrid")
 class RasterConfig(NamedTuple):
     """Static rasterizer configuration."""
 
-    tg_max: int = 64  # max tiles per gaussian in binning
+    # max tiles per gaussian in binning; 0 keeps every pair (graphdeco's
+    # rule: no cut, no budget, no per-tile cap)
+    tg_max: int = 64
     chunk: int = 64  # pairs per chunk of the plain torch composite
     max_pairs_per_tile: int = 4096  # per-tile pair cap
     backend: str = "cuda"
@@ -159,18 +163,20 @@ def render_gaussians(
                          "use backend='torch' on the CPU")
     n = posed_means.shape[0]
     opacity = cano_opacity.reshape(n)
-    if colors_precomp is None:
-        colors = calculate_colors_from_sh(
-            posed_means, cano_features, cano_means, camera, sh_degree, tf)
-    else:
-        colors = colors_precomp
-
-    proj = project_gaussians(posed_means, posed_cov, camera, active=active)
-    if gauss_group is not None:
-        proj, colors, opacity = _gather_fields(proj, colors, opacity,
-                                               gauss_group)
-    if means2d_offset is not None:
-        proj = proj._replace(means2d=proj.means2d + means2d_offset)
+    with trace.span("raster.project"):
+        if colors_precomp is None:
+            colors = calculate_colors_from_sh(
+                posed_means, cano_features, cano_means, camera, sh_degree,
+                tf)
+        else:
+            colors = colors_precomp
+        proj = project_gaussians(posed_means, posed_cov, camera,
+                                 active=active)
+        if gauss_group is not None:
+            proj, colors, opacity = _gather_fields(proj, colors, opacity,
+                                                   gauss_group)
+        if means2d_offset is not None:
+            proj = proj._replace(means2d=proj.means2d + means2d_offset)
 
     w, h = camera.width, camera.height
     bg = torch.as_tensor(bg_color, dtype=posed_means.dtype,
@@ -178,17 +184,14 @@ def render_gaussians(
     zero = torch.zeros((), dtype=torch.int32, device=posed_means.device)
     if config.backend == "oracle":
         row_chunk = 16 if h % 16 == 0 else (8 if h % 8 == 0 else 1)
-        img, t_final = oracle_mod.render_oracle(
-            proj, colors, opacity, bg, w, h, row_chunk=row_chunk)
+        with trace.span("raster.composite"):
+            img, t_final = oracle_mod.render_oracle(
+                proj, colors, opacity, bg, w, h, row_chunk=row_chunk)
         overflow, overflow_far = zero, zero
     else:
-        ntx = (w + TILE - 1) // TILE
-        nty = (h + TILE - 1) // TILE
-        rgb_tiles, t_tiles, bins = _composite(
-            proj, colors, opacity, ntx, nty, config, gauss_group,
+        img, t_final, bins = _composite(
+            proj, colors, opacity, bg, w, h, config, gauss_group,
             gauss_axis_size)
-        img, t_final = composite_mod.tiles_to_image(
-            rgb_tiles, t_tiles, bg, ntx, nty, w, h)
         overflow, overflow_far = bins.overflow_count, bins.overflow_far
 
     return RenderOutput(
@@ -247,11 +250,13 @@ def _gather_tiles(rgb, t, group, stack: bool):
     return out[..., :3, :], out[..., 3, :]
 
 
-def _composite(proj, colors, opacity, ntx: int, nty: int,
+def _composite(proj, colors, opacity, bg, w: int, h: int,
                config: RasterConfig, group, n: int):
     """Bin, build the payload and composite, split over the gauss group's
-    n ranks as config.tile_shard_mode says. Returns the full grid's
-    (rgb [T, 3, 256], T_final [T, 256]) and the bins."""
+    n ranks as config.tile_shard_mode says. Returns the image [H, W, 3]
+    over `bg`, its final transmittance [H, W] and the bins; records the
+    bins' pair counters (utils/trace.py)."""
+    ntx, nty = (w + TILE - 1) // TILE, (h + TILE - 1) // TILE
     num_tiles = ntx * nty
     split = group is not None and n > 1
     mode = config.tile_shard_mode
@@ -261,13 +266,31 @@ def _composite(proj, colors, opacity, ntx: int, nty: int,
     # hybrid with no hot tiles is owner, as in the JAX package
     owner = dealt and not pairslice and not hybrid
     col = group_rank(group)
-    dev = proj.depth.device
+    with trace.span("raster.bin"):
+        bins = _bin(proj, ntx, nty, config, col, n, owner, pairslice, group)
+    with trace.span("raster.composite"):
+        rgb, t = _composite_bins(proj, colors, opacity, bins, ntx, nty,
+                                 config, group, n, col,
+                                 (owner, pairslice, hybrid))
+        img, t_final = composite_mod.tiles_to_image(rgb, t, bg, ntx, nty,
+                                                    w, h)
+    return img, t_final, bins
+
+
+def _bin(proj, ntx: int, nty: int, config: RasterConfig, col: int, n: int,
+         owner: bool, pairslice: bool, group):
+    """The bins this rank composites: its owned tiles', or its slice of
+    the pair array."""
     bins = bin_gaussians(
         proj, ntx, nty, config.tg_max, lane_align=config.lane_align,
         pair_budget_factor=config.pair_budget_factor,
         max_pairs_per_tile=config.max_pairs_per_tile,
         multi_frac=config.multi_frac, owner=col if owner else 0,
         num_owners=n if owner else 1, group=group if owner else None)
+    trace.count("raster.pairs_emitted", bins.tile_counts,
+                bins.overflow_count)
+    trace.count("raster.pairs_kept", bins.tile_counts)
+    trace.count("raster.pairs_dropped", bins.overflow_count)
     if pairslice:
         # an equal slice of the pair array a rank, its width rounded up to
         # lane_align so that the slices fall where JAX's do
@@ -281,6 +304,18 @@ def _composite(proj, colors, opacity, ntx: int, nty: int,
         end = torch.clamp(bins.tile_offsets + bins.tile_counts - start, 0, s)
         bins = bins._replace(pair_src=src[start:start + s], tile_offsets=off,
                              tile_counts=end - off)
+    return bins
+
+
+def _composite_bins(proj, colors, opacity, bins: TileBins, ntx: int,
+                    nty: int, config: RasterConfig, group, n: int, col: int,
+                    modes):
+    """The payload and the composite of the bins, put together over the
+    group's ranks as `modes` (owner, pairslice, hybrid) say: the full
+    grid's rgb [T, 3, 256] and T_final [T, 256]."""
+    owner, pairslice, hybrid = modes
+    num_tiles = ntx * nty
+    dev = proj.depth.device
     pay = build_payload(proj, colors, opacity, bins)
     offs, cnts, tids = bins.tile_offsets, bins.tile_counts, None
     if owner or hybrid:
@@ -318,4 +353,4 @@ def _composite(proj, colors, opacity, ntx: int, nty: int,
     elif owner:
         rgb, t = _gather_tiles(rgb, t, group, stack=False)
         rgb, t = rgb[perm], t[perm]
-    return rgb, t, bins
+    return rgb, t

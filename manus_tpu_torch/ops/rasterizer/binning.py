@@ -10,7 +10,11 @@ package's single-device `bin_gaussians`, drop rules included:
      largest rects are admitted first, then ties in gaussian-id order.
      A rect wider or taller than tg_max allows is cut to a sub-rect
      (width clamped to tg_max, then rows to tg_max // width). Lost cells
-     are overflow-counted;
+     are overflow-counted. With tg_max 0 (the graphdeco rasterizer's
+     rule, the port's own setting: the JAX package has no such mode)
+     every visible gaussian emits its whole rect, nothing is cut, left
+     out or dropped by rules 3-4, and the pairs' number is read back to
+     the host once, to size the buffers, where the tiers' are static;
   2. pairs ordered by (tile, depth, gaussian id). torch.sort has no
      multi-key form, so this is three stable argsorts, least significant
      key first: gaussian id, then depth, then tile;
@@ -25,7 +29,8 @@ ops/rasterizer/api.py) a rank bins only the tiles it owns under
 keys are the owned tiles' local slots, the budget is the owner's share,
 and the budget and cap drops are summed over the owners' `group`.
 
-Every step is a torch op on the gaussians' device.
+Every step is a torch op on the gaussians' device; with tg_max 0 one
+host read a call.
 """
 from __future__ import annotations
 
@@ -100,39 +105,43 @@ def _admit(kept0, in_class, lo: int, hi: int, cap: int):
     return in_class & ((kept0 >= s_star) | (part & (rank <= cap - n_big)))
 
 
-def bin_gaussians(
-    proj: ProjectedGaussians,
-    num_tiles_x: int,
-    num_tiles_y: int,
-    tg_max: int,
-    lane_align: int = 128,
-    pair_budget_factor: int = 8,
-    max_pairs_per_tile: int = 0,
-    multi_frac: float = 1.0,
-    multi_floor: int = 4096,
-    owner: int = 0,
-    num_owners: int = 1,
-    group=None,
-) -> TileBins:
-    """See the module docstring. `owner` is this rank's place in the
-    owners' `group` (a torch.distributed group of num_owners ranks)."""
+def _expand_whole(rect, visible, depth, num_tiles_x: int):
+    """Every cell of every visible gaussian's rect, gaussian by gaussian
+    and row by row within its rect: the (tile, depth, gaussian id) of
+    each pair. The pairs' number is read back to the host once."""
+    device = rect.device
+    rw = (rect[:, 2] - rect[:, 0]).long()
+    cells = torch.where(visible, rw * (rect[:, 3] - rect[:, 1]), 0)
+    total = int(cells.sum())
+    gid = torch.repeat_interleave(
+        torch.arange(cells.shape[0], device=device), cells,
+        output_size=total)
+    first = torch.cumsum(cells, 0) - cells
+    k = torch.arange(total, device=device) - first[gid]
+    w = rw[gid]
+    dy = torch.div(k, w, rounding_mode="floor")
+    tile = (rect[gid, 1] + dy) * num_tiles_x + rect[gid, 0] + (k - dy * w)
+    return tile.to(torch.int32), depth[gid], gid.to(torch.int32)
+
+
+def _expand_tiers(proj: ProjectedGaussians, num_tiles_x: int,
+                  num_tiles: int, tg_max: int, multi_frac: float,
+                  multi_floor: int):
+    """The size-tiered expansion (rule 1): the (tile, depth, gaussian id)
+    of each slot of the static buffers, num_tiles where a slot holds no
+    pair, and the cells that the tg_max cut and the tiers' capacities
+    left out."""
     rect = proj.tile_rect
     visible = proj.visible
     device = rect.device
     n = proj.depth.shape[0]
-    num_tiles = num_tiles_x * num_tiles_y
     i32 = torch.int32
-    sharded = num_owners > 1
-    t_local = num_tiles // num_owners
-    if sharded:
-        owner_np, rank_np, owned_np, _ = tile_owner_tables(
-            num_tiles_x, num_tiles_y, num_owners)
-
     rw = rect[:, 2] - rect[:, 0]
     rh = rect[:, 3] - rect[:, 1]
     n_slots = rw * rh
     rw_eff = torch.clamp(rw, 1, tg_max)
-    rh_eff = torch.minimum(rh, torch.div(tg_max, rw_eff, rounding_mode="floor"))
+    rh_eff = torch.minimum(rh, torch.div(tg_max, rw_eff,
+                                         rounding_mode="floor"))
     rw_kept = torch.minimum(rw, rw_eff)
     kept0 = rw_kept * rh_eff
     is_multi = visible & (kept0 > 1)
@@ -142,7 +151,8 @@ def bin_gaussians(
     tiers = []
     if tg_max >= 2:
         tiers.append((2, small_max,
-                      min(n, max(multi_floor, int(round(n * multi_frac))))))
+                      min(n, max(multi_floor,
+                                 int(round(n * multi_frac))))))
     if tg_max > small_max:
         cap_big = n if multi_frac >= 1.0 else min(
             n, max(multi_floor // 4, int(round(n * multi_frac / 8)))
@@ -182,16 +192,55 @@ def bin_gaussians(
         depth_blocks.append(
             proj.depth.detach()[order][:, None].expand(-1, hi - 1).reshape(-1)
         )
-        gidx_blocks.append(order.to(i32)[:, None].expand(-1, hi - 1).reshape(-1))
+        gidx_blocks.append(
+            order.to(i32)[:, None].expand(-1, hi - 1).reshape(-1))
 
     kept = rw_f * rh_f
     overflow_trunc = torch.where(
         visible, n_slots - kept, torch.zeros_like(kept)
     ).sum().to(i32)
 
-    pair_tile = torch.cat(tile_blocks)
-    pair_depth = torch.cat(depth_blocks)
-    pair_gidx = torch.cat(gidx_blocks)
+    return (torch.cat(tile_blocks), torch.cat(depth_blocks),
+            torch.cat(gidx_blocks), overflow_trunc)
+
+
+def bin_gaussians(
+    proj: ProjectedGaussians,
+    num_tiles_x: int,
+    num_tiles_y: int,
+    tg_max: int,
+    lane_align: int = 128,
+    pair_budget_factor: int = 8,
+    max_pairs_per_tile: int = 0,
+    multi_frac: float = 1.0,
+    multi_floor: int = 4096,
+    owner: int = 0,
+    num_owners: int = 1,
+    group=None,
+) -> TileBins:
+    """See the module docstring. `owner` is this rank's place in the
+    owners' `group` (a torch.distributed group of num_owners ranks);
+    tg_max 0 keeps every pair (the budget, the per-tile cap, multi_frac
+    and multi_floor then play no part)."""
+    rect = proj.tile_rect
+    visible = proj.visible
+    device = rect.device
+    n = proj.depth.shape[0]
+    num_tiles = num_tiles_x * num_tiles_y
+    i32 = torch.int32
+    sharded = num_owners > 1
+    t_local = num_tiles // num_owners
+    if sharded:
+        owner_np, rank_np, owned_np, _ = tile_owner_tables(
+            num_tiles_x, num_tiles_y, num_owners)
+
+    if tg_max <= 0:
+        pair_tile, pair_depth, pair_gidx = _expand_whole(
+            rect, visible, proj.depth.detach(), num_tiles_x)
+        overflow_trunc = torch.zeros((), dtype=i32, device=device)
+    else:
+        pair_tile, pair_depth, pair_gidx, overflow_trunc = _expand_tiers(
+            proj, num_tiles_x, num_tiles, tg_max, multi_frac, multi_floor)
     n_exp = pair_tile.shape[0]
     pair_key = pair_tile
     if sharded:
@@ -203,7 +252,9 @@ def bin_gaussians(
         pair_key = torch.where(
             is_local, torch.as_tensor(rank_np, device=device)[safe_t],
             torch.full_like(pair_tile, t_local))
-    perm = torch.argsort(pair_gidx, stable=True)
+    # the whole-rect expansion comes in gaussian-id order already
+    perm = (torch.arange(n_exp, device=device) if tg_max <= 0
+            else torch.argsort(pair_gidx, stable=True))
     perm = perm[torch.argsort(pair_depth[perm], stable=True)]
     perm = perm[torch.argsort(pair_key[perm], stable=True)]
     sorted_gidx = pair_gidx[perm]
@@ -217,13 +268,16 @@ def bin_gaussians(
                         torch.cumsum(flat_counts, 0, dtype=i32)])
 
     p_budget = n_exp
-    if pair_budget_factor > 0:
+    if pair_budget_factor > 0 and tg_max > 0:
         p_budget = min(p_budget, n * pair_budget_factor)
-    if sharded:
+    if sharded and tg_max > 0:
         # 1.5x the owner's even share of the budget plus an 8-lane floor
         # (JAX's rule: a small grid cannot be balanced statically)
         p_budget = min(p_budget,
                        -(-(p_budget * 3) // (2 * num_owners)) + 8 * lane_align)
+    # at least one lane, so that no call hands the composite an empty
+    # buffer
+    p_budget = max(p_budget, 1)
     p_budget = ((p_budget + lane_align - 1) // lane_align) * lane_align
 
     starts = torch.clamp(bounds[:-1], max=p_budget)
@@ -231,7 +285,7 @@ def bin_gaussians(
     counts = ends - starts
     overflow_budget = ((bounds[1:] - bounds[:-1]) - counts).sum().to(i32)
     overflow_far = torch.zeros((), dtype=i32, device=device)
-    if max_pairs_per_tile > 0:
+    if max_pairs_per_tile > 0 and tg_max > 0:
         overflow_far = torch.clamp(counts - max_pairs_per_tile, min=0).sum().to(i32)
         counts = torch.clamp(counts, max=max_pairs_per_tile)
     if sharded:

@@ -327,6 +327,7 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
         )
         for k, val in aux["parts"].items():
             metrics[f"loss/{k}"] = val.detach().mean()
+        trace.count("gaussians.live", metrics["num_active"])
 
         new_state = state._replace(
             model=model._replace(params=GaussianParams(

@@ -9,9 +9,9 @@ too): its id, name, the thread's native id, start and end on
 thread when it opened (None for a root), and the attrs that tie the
 spans of one step or frame together.
 
-Records stay in memory, at most `CAP` of them; spans past the cap are
-dropped and counted (`dropped()`). `records()` and `clear()` read and
-reset them.
+Records stay in memory, at most `CAP` spans and `CAP` counter readings;
+those past the cap are dropped and counted (`dropped()`). `records()`,
+`counters()` and `clear()` read and reset them.
 
 The spans' clock is not the profiler's: torch.profiler (kineto) stamps
 its events in Unix-epoch nanoseconds. `clock_anchor()` samples
@@ -43,6 +43,35 @@ run. The spans the port opens:
   composite.frame     run_composite, one a frame (root; frame)
   composite.contacts  make_composite_render's two contact searches
   composite.png       a frame's 8-bit cast and its PNG
+  raster.project      render_gaussians: SH colours, the EWA projection
+                      (and a sharded render's gather of the fields)
+  raster.bin          binning: pairs, their sort, the tiles' segments
+  raster.composite    the payload, the composite and the image
+
+Counters: `count(name, *values)` records one reading, whose count is the
+sum of the elements of `values` (0-d or larger tensors on any device, or
+numbers). Off, it returns at once, as span() does. On, it keeps the
+values as they are, with the thread and the clock: no operation is
+launched and nothing is read back from the device, so a counted step
+holds the same device operations as one that is not. `counters()` reads
+them all back in one go, a host sync a device, when a stretch ends; the
+Chrome trace export carries them as counter events ("ph": "C"). The
+counters the port records:
+
+  gaussians.live            live slots after a train step (make_train_step)
+  raster.pairs_emitted      a view's (gaussian, tile) pairs before any
+                            drop rule: kept plus dropped
+  raster.pairs_kept         the pairs the view composites (TileBins'
+                            tile_counts, summed)
+  raster.pairs_dropped      the pairs binning dropped (TileBins'
+                            overflow_count: the tile-per-gaussian and
+                            multi-tile caps, the pair budget, the per-tile
+                            cap); on a rank of a tile-sharded render the
+                            kept pairs are its own tiles'
+  densify.children_written  an event's children written into free slots:
+                            clones + 2 x splits
+  densify.children_dropped  the children of its candidates that found no
+                            free slot (a split's two when either lacks one)
 """
 from __future__ import annotations
 
@@ -65,6 +94,13 @@ class Span(NamedTuple):
     end_ns: int
     parent: Optional[int]  # the id of the innermost span open on the thread
     attrs: dict
+
+
+class Count(NamedTuple):
+    name: str
+    tid: int  # threading.get_native_id() of the recording thread
+    t_ns: int  # time.perf_counter_ns()
+    value: float  # the sum of the recorded values' elements
 
 
 class _Noop:
@@ -124,6 +160,7 @@ class Recorder:
         self._local = threading.local()
         self._ids = itertools.count(1)
         self._records = []
+        self._counts = []
         self._threads = {}
         self._dropped = 0
 
@@ -132,12 +169,48 @@ class Recorder:
             return NOOP
         return _Open(self, name, attrs)
 
+    def count(self, name: str, /, *values):
+        if not self.on:
+            return
+        rec = (name, threading.get_native_id(), perf_counter_ns(), values)
+        with self._lock:
+            if len(self._counts) < self.cap:
+                self._counts.append(rec)
+            else:
+                self._dropped += 1
+
     def _add(self, span: Span):
         with self._lock:
             if len(self._records) < self.cap:
                 self._records.append(span)
             else:
                 self._dropped += 1
+
+    def counters(self) -> list:
+        """The counter readings as Count records, in the order recorded:
+        each sum taken where its values live, then read back once per
+        device."""
+        with self._lock:
+            recs = list(self._counts)
+        if not recs:
+            return []
+        import torch
+
+        sums, by_device = [0.0] * len(recs), {}
+        for i, (_, _, _, values) in enumerate(recs):
+            for v in values:
+                if isinstance(v, torch.Tensor):
+                    by_device.setdefault(v.device, ([], []))
+                    by_device[v.device][0].append(i)
+                    by_device[v.device][1].append(v.detach().sum(
+                        dtype=torch.float64))
+                else:
+                    sums[i] += float(v)
+        for idx, parts in by_device.values():
+            for i, x in zip(idx, torch.stack(parts).tolist()):
+                sums[i] += x
+        return [Count(name, tid, t, total)
+                for (name, tid, t, _), total in zip(recs, sums)]
 
     def records(self) -> list:
         with self._lock:
@@ -153,11 +226,14 @@ class Recorder:
     def clear(self):
         with self._lock:
             self._records = []
+            self._counts = []
             self._dropped = 0
 
 
 _REC = Recorder()
 span = _REC.span
+count = _REC.count
+counters = _REC.counters
 records = _REC.records
 dropped = _REC.dropped
 threads = _REC.threads
@@ -185,14 +261,18 @@ def write_chrome_trace(path: str, anchor=None):
     """The recorder's spans as Chrome trace-event JSON: complete events
     ("ph": "X") in microseconds since the Unix epoch (through `anchor`, a
     clock_anchor(); a new one by default), one row a native thread id,
-    each span's id, parent and attrs as its args, and the count of spans
-    dropped."""
+    each span's id, parent and attrs as its args; the counters as counter
+    events ("ph": "C", the reading under the counter's name in args); and
+    the count of spans and readings dropped."""
     perf0, epoch0 = anchor or clock_anchor()
     offset, pid = epoch0 - perf0, os.getpid()
     events = [dict(name=s.name, ph="X", ts=(s.start_ns + offset) / 1e3,
                    dur=(s.end_ns - s.start_ns) / 1e3, pid=pid, tid=s.tid,
                    args=dict(s.attrs, id=s.id, parent=s.parent))
               for s in records()]
+    events += [dict(name=c.name, ph="C", ts=(c.t_ns + offset) / 1e3,
+                    pid=pid, tid=c.tid, args={c.name: c.value})
+               for c in counters()]
     with open(path, "w") as f:
         json.dump(dict(traceEvents=events, displayTimeUnit="ms",
                        otherData=dict(dropped=dropped())), f, default=str)

@@ -9,6 +9,7 @@ import threading
 import time
 import tracemalloc
 
+import numpy as np
 import pytest
 import torch
 
@@ -212,10 +213,12 @@ def test_spans_land_on_the_profilers_clock():
     assert mm.device_resource_id == span.tid
 
 
+RASTER_SPANS = {"raster.project", "raster.bin", "raster.composite"}
 SPAN_NAMES = {"fit.step", "fit.batch_wait", "fit.train_step",
               "step.forward", "step.backward", "step.update", "fit.densify",
               "fit.opacity_reset", "fit.log", "prefetch.sample",
-              "composite.frame", "composite.contacts", "composite.png"}
+              "composite.frame", "composite.contacts", "composite.png",
+              *RASTER_SPANS}
 
 
 @pytest.fixture(params=["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
@@ -267,7 +270,8 @@ def test_spans_stay_out_of_the_profilers_trace(device, tmp_path):
 
     off, on = events(False), events(True)
     assert {s.name for s in trace.records()} == {
-        "fit.train_step", "step.forward", "step.backward", "step.update"}
+        "fit.train_step", "step.forward", "step.backward", "step.update",
+        *RASTER_SPANS}
 
     def names(evs, kind=None):
         return sorted(e.name for e in evs
@@ -294,9 +298,10 @@ HAND = ["dataset.num_frames=2", "dataset.sample_size=20",
 STEP_PARTS = {"step.forward", "step.backward", "step.update"}
 
 
-def _read(path):
+def _read(path, ph="X"):
+    """The trace file's events of phase `ph` (spans; "C": counters)."""
     with open(path) as f:
-        return json.load(f)["traceEvents"]
+        return [e for e in json.load(f)["traceEvents"] if e["ph"] == ph]
 
 
 @pytest.fixture(scope="module")
@@ -371,3 +376,207 @@ def test_a_rank_of_several_writes_its_own_trace(monkeypatch):
     monkeypatch.setattr(tmain.dist, "get_world_size", lambda: 4)
     monkeypatch.setattr(tmain.dist, "get_rank", lambda: 2)
     assert tmain._rank_path("out/run.trace.json") == "out/run.trace.rank2.json"
+
+
+class _Untouchable:
+    """A value that fails on any use: a counter that is off must not read
+    it (no conversion, no sum, no host sync)."""
+
+    def __getattr__(self, name):
+        raise AssertionError(f"the value was used ({name})")
+
+    def __int__(self):
+        raise AssertionError("the value was read")
+
+    __float__ = __index__ = __bool__ = __int__
+
+
+def test_count_off_costs_nothing(monkeypatch):
+    def no_clock():
+        raise AssertionError("the clock was read")
+
+    monkeypatch.setattr(trace, "perf_counter_ns", no_clock)
+    trace.count("gaussians.live", _Untouchable())
+    trace.count("raster.pairs_emitted", _Untouchable(), _Untouchable())
+    assert trace.counters() == [] and trace.dropped() == 0
+
+    def counts(n):
+        x = torch.ones(())
+        for _ in range(n):
+            trace.count("gaussians.live", x)
+
+    counts(10)
+    tracemalloc.start()
+    try:
+        before, _ = tracemalloc.get_traced_memory()
+        tracemalloc.reset_peak()
+        counts(10_000)
+        after, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    assert after - before <= 0 and peak - before < 512
+
+
+def test_count_launches_nothing_and_syncs_not(device):
+    """On as off, a count keeps its tensors as they are: no operation on
+    them, and on the card no host sync (the sync debug mode raises on
+    one); counters() reads them back, summed."""
+    x = torch.arange(6, dtype=torch.int32, device=device)
+    y = torch.tensor(4, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            for on in (False, True):
+                if on:
+                    trace.enable()
+                trace.count("raster.pairs_emitted", x, y, 3)
+                trace.count("raster.pairs_dropped", y)
+    finally:
+        if device == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    assert not [e.name for e in prof.events() if e.name.startswith("aten::")]
+    trace.disable()
+    got = trace.counters()
+    assert [(c.name, c.value) for c in got] == [
+        ("raster.pairs_emitted", 15 + 4 + 3), ("raster.pairs_dropped", 4)]
+    assert all(c.tid == threading.get_native_id() for c in got)
+    assert got[0].t_ns <= got[1].t_ns
+
+
+def test_the_cap_drops_counts_and_counts_them():
+    rec = trace.Recorder(cap=2)
+    rec.on = True
+    for i in range(5):
+        rec.count("gaussians.live", i)
+    assert [c.value for c in rec.counters()] == [0, 1]
+    assert rec.dropped() == 3
+    rec.clear()
+    assert rec.counters() == [] and rec.dropped() == 0
+
+
+def test_chrome_trace_carries_the_counters(tmp_path):
+    trace.enable()
+    with trace.span("fit.step", step=0):
+        trace.count("gaussians.live", torch.tensor(7))
+    trace.count("raster.pairs_kept", torch.tensor([2, 3]))
+    trace.disable()
+    path = tmp_path / "t.json"
+    anchor = trace.clock_anchor()
+    trace.write_chrome_trace(str(path), anchor=anchor)
+    events = json.loads(path.read_text())["traceEvents"]
+    counts = [e for e in events if e["ph"] == "C"]
+    assert [(e["name"], e["args"]) for e in counts] == [
+        ("gaussians.live", {"gaussians.live": 7.0}),
+        ("raster.pairs_kept", {"raster.pairs_kept": 5.0})]
+    (step,) = [e for e in events if e["ph"] == "X"]
+    first = trace.counters()[0]
+    assert counts[0]["ts"] == pytest.approx(
+        (first.t_ns + anchor[1] - anchor[0]) / 1e3, abs=1.0)
+    assert step["ts"] <= counts[0]["ts"] <= step["ts"] + step["dur"]
+    assert counts[0]["tid"] == step["tid"]
+
+
+def _render_counts(tg_max, budget, cap):
+    """A render of a small scene with the recorder on: its bins (binned
+    again, as the render bins them) and its pair counters."""
+    from manus_tpu_torch.ops.rasterizer.api import RasterConfig, \
+        render_gaussians
+    from manus_tpu_torch.ops.rasterizer.binning import bin_gaussians
+    from manus_tpu_torch.ops.rasterizer.projection import project_gaussians
+    from manus_tpu_torch.utils.camera import make_camera
+
+    from tests.utils import random_scene
+
+    s = random_scene(300, seed=5, scale_range=(0.08, 0.25))
+    K = torch.tensor([[60.0, 0, 31.5], [0, 60.0, 31.5], [0, 0, 1]])
+    extr = torch.tensor([[1.0, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 3.0]])
+    cam = make_camera(K.numpy(), extr.numpy(), 64, 64, device="cpu")
+    means = torch.tensor(np.asarray(s["means"]))
+    cov = torch.tensor(np.asarray(s["cov6"]))
+    cfg = RasterConfig(tg_max=tg_max, pair_budget_factor=budget,
+                       max_pairs_per_tile=cap, backend="torch")
+    trace.enable()
+    render_gaussians(means, cov, means, torch.zeros(300, 1, 3),
+                     torch.as_tensor(s["opacity"]), cam, torch.zeros(3),
+                     colors_precomp=torch.as_tensor(s["colors"]),
+                     config=cfg)
+    trace.disable()
+    bins = bin_gaussians(project_gaussians(means, cov, cam), 4, 4, tg_max,
+                         pair_budget_factor=budget, max_pairs_per_tile=cap)
+    return bins, {c.name: c.value for c in trace.counters()}
+
+
+@pytest.mark.parametrize("tg_max,budget,cap", [(0, 0, 0), (3, 1, 12)],
+                         ids=["uncapped", "tuned_drops"])
+def test_pair_counters_agree_with_the_bins(tg_max, budget, cap):
+    bins, got = _render_counts(tg_max, budget, cap)
+    kept, dropped = int(bins.tile_counts.sum()), int(bins.overflow_count)
+    assert got == {"raster.pairs_emitted": kept + dropped,
+                   "raster.pairs_kept": kept,
+                   "raster.pairs_dropped": dropped}
+    assert (dropped > 0) == (tg_max > 0) and kept > 0
+    # the rules drop pairs, never make them: the uncapped binning's pairs
+    # are what the capped one emits
+    if tg_max:
+        full, _ = _render_counts(0, 0, 0)
+        assert int(full.tile_counts.sum()) == kept + dropped
+
+
+def test_densify_counters_agree_with_the_event():
+    """Eight live slots over the threshold in 14: two clones and six
+    splits ask for 14 children; the 6 free slots take both clones and two
+    splits, and the other four splits drop 8 children."""
+    from manus_tpu_torch.models import densify as tdensify
+    from manus_tpu_torch.models.gaussians import (GaussianModel,
+                                                  GaussianOpts,
+                                                  GaussianParams)
+    from manus_tpu_torch.train import optim as toptim
+
+    cap, live = 14, 8
+    gen = torch.Generator().manual_seed(0)
+    scaling = torch.full((cap, 3), -2.0)
+    scaling[:2] = -9.0  # small: clones
+    params = GaussianParams(
+        xyz=torch.randn(cap, 3, generator=gen),
+        features_dc=torch.zeros(cap, 1, 3),
+        features_rest=torch.zeros(cap, 15, 3), scaling=scaling,
+        rotation=torch.tensor([[1.0, 0, 0, 0]]).repeat(cap, 1),
+        opacity=torch.full((cap, 1), 2.0))
+    model = GaussianModel(params=params,
+                          active=torch.arange(cap) < live)
+    stats = tdensify.DensifyStats(grad_accum=torch.ones(cap),
+                                  denom=torch.ones(cap),
+                                  max_radii2d=torch.zeros(cap))
+    opts = GaussianOpts(densify_grad_threshold=0.5, percent_dense=0.01)
+    noise = torch.randn(2, cap, 3, generator=gen)
+    trace.enable()
+    _, _, _, info = tdensify.densify_and_prune(
+        model, toptim.init_adam(params), stats, opts, 1.0, noise, False)
+    trace.disable()
+    got = {c.name: c.value for c in trace.counters()}
+    assert int(info["clones"]) == 2 and int(info["splits"]) == 2
+    assert got == {"densify.children_written": 2 + 2 * 2,
+                   "densify.children_dropped": 2 * 4}
+
+
+def test_a_hand_fit_opens_its_spans_and_the_raster_spans(hand_run):
+    """The hand fit's span names are those it opened before the raster
+    spans came, and the three raster spans, once a view under each
+    step.forward (the final validation's renders have no step)."""
+    out, spans = hand_run
+    assert {e["name"] for e in spans} == {
+        "fit.step", "fit.batch_wait", "fit.train_step", "fit.log",
+        "prefetch.sample", *STEP_PARTS, *RASTER_SPANS}
+    by_id = {e["args"]["id"]: e for e in spans}
+    forward = {e["args"]["id"] for e in spans if e["name"] == "step.forward"}
+    for name in RASTER_SPANS:
+        under = [by_id[e["args"]["parent"]]["args"]["id"] for e in spans
+                 if e["name"] == name and e["args"]["parent"] in by_id]
+        assert sorted(under) == sorted(forward)
+    live = [e["args"]["gaussians.live"] for e in _read(
+        os.path.join(out, "hand.trace.json"), "C")
+        if e["name"] == "gaussians.live"]
+    assert len(live) == 3 and all(v > 0 for v in live)
