@@ -8,7 +8,7 @@ on BRICS captures read from disk, and sharded training over ranks.
 Phases, each of which exits non-zero on failure:
 
   1. build: nvcc compiles manus_tpu_torch/csrc/*.cu (composite, conv3x3,
-     lpips_head, knn) for sm_90a into manus_tpu_torch/_build/ (one nvcc per
+     lpips_head, knn, project) for sm_90a into manus_tpu_torch/_build/ (one nvcc per
      source, in parallel, beside g++ for the host assembly of
      csrc/image_ops.cpp); ptxas's report of every library, read from the
      log kept beside it (also for one built earlier), must show no spill;
@@ -186,6 +186,22 @@ Phases, each of which exits non-zero on failure:
      pair in its run loop, from cuobjdump). Phase 10 counts its launches,
      two a frame at least.
 
+ 15. project (runs after 14): the projection kernels (csrc/project.cu,
+     projection.project_gaussians_cuda) at the cells' shapes, PROJECT_ROWS
+     gaussians under a 1280x720 view: the hand's 131,072 with SH 3 and
+     voxel-blended tf (no gradient), the object's 1,048,576 with SH 3 and
+     no tf. Against the plain chain (calculate_colors_from_sh +
+     project_gaussians) on the same card: the projected fields bit for
+     bit, the colours within PROJECT_COLOR_TOL and every input gradient
+     within PROJECT_GRAD_TOL of autograd's; the forward's and the
+     backward's HBM-cold ms (CUDA-graph replays rotating over copies of
+     their inputs past 100 MB) beside their bytes bound, the plain chain's
+     forward ms without and with grad and its forward + backward ms (its
+     backward: the latter two's difference), and ptxas's registers. Every
+     CLI run of phases 9, 10, 11, 12 and 13 (each rank) checks that both
+     kernels launched as often as the composite kernels, forward and
+     backward: one projection a render.
+
  13. parallel: the sharded training path (manus_tpu_torch/parallel/).
      (a) The composite kernels' tile-id form on the bench scene's view at
      each of PAR_SHAPES (512x512 and 1280x720) with PAR_G owners: each
@@ -278,6 +294,7 @@ from manus_tpu_torch.ops.rasterizer.binning import (
     tile_owner_tables,
 )
 from manus_tpu_torch.ops.rasterizer.payload import NUM_LIVE, build_payload
+from manus_tpu_torch.ops.rasterizer import projection as proj_mod
 from manus_tpu_torch.ops.rasterizer.projection import TILE, project_gaussians
 from manus_tpu_torch.ops.skinning import (
     bone_deformation_transforms,
@@ -317,7 +334,11 @@ from manus_tpu_torch.train.workloads import (
     resolve_skin_weights,
 )
 from manus_tpu_torch.utils import cuda_build
-from manus_tpu_torch.utils.camera import index_camera, stack_cameras
+from manus_tpu_torch.utils.camera import (
+    index_camera,
+    make_camera,
+    stack_cameras,
+)
 from manus_tpu_torch.utils.colormap import apply_colormap
 from manus_tpu_torch.utils.io import (
     dump_image,
@@ -533,6 +554,12 @@ CONTACT_ROWS, BASELINE_LEVEL, BASELINE_FRAMES = 4096, 2, 4
 # the object's slots, the share of the references that are valid, and
 # the kernel's timed launches.
 KNN_POINTS, KNN_VALID, KNN_REPS = 131072, 0.9, 20
+# The projection kernels at the cells' shapes (phase 15): the hand's and
+# the object's slots; colours within float32 rounding of a 16-term sum in
+# another order, gradients within rounding of the closed form evaluated
+# in another order than autograd's (tests/test_torch_project_cuda.py).
+PROJECT_ROWS = {"hand": 131072, "object": 1048576}
+PROJECT_COLOR_TOL, PROJECT_GRAD_TOL = 1e-5, 1e-4
 REPLACES = {
     "composite_fwd": "manus_tpu/ops/rasterizer/pallas_backend.py:105",
     "composite_bwd": "manus_tpu/ops/rasterizer/pallas_backend.py:258",
@@ -561,8 +588,13 @@ COUNTERS = {
     "lpips_head_bwd": conv_mod.head_bwd_cuda,
     "conv3x3": conv_mod.conv3x3_image_cuda,
 }
-# Every count _run_cli reads: the kernels' above and the search kernel's.
-COUNTED = (*COUNTERS, "nearest_neighbor")
+# The projection kernels' wrappers: one forward a render through backend
+# "cuda", and one backward a render whose gradient reaches them.
+PROJECT_COUNTERS = {"project_fwd": proj_mod.project_fwd_cuda,
+                    "project_bwd": proj_mod.project_bwd_cuda}
+# Every count _run_cli reads: the kernels' above, the search kernel's and
+# the projection kernels'.
+COUNTED = (*COUNTERS, "nearest_neighbor", *PROJECT_COUNTERS)
 # Launches per view and step of each kernel on the LPIPS step.
 PER_STEP = {"composite_fwd": 1, "composite_bwd": 1, "conv3x3_layout": 13,
             "conv3x3_layout_dx": 13, "lpips_head_fwd": 5, "lpips_head_bwd": 5,
@@ -1157,6 +1189,163 @@ def knn_phase(dev, ptxas_log):
         max_abs_err=diff, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by="operations" if by_ops >= by_bytes else "bytes",
         one_slice_ms=one_ms, sass=sass)}
+
+
+def project_inputs(n, articulated, dev, seed=0):
+    """A cell's projection inputs on the card: n gaussians in a 0.3 m ball
+    seen by a 1280x720 camera 2 m away, SH 3 (K = 16), 90% live; for the
+    hand a rigid transform a gaussian (as the voxel grid blends them: no
+    gradient) and canonical means near the posed ones."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cam = make_camera([[1000.0, 0, 639.5], [0, 1000.0, 359.5], [0, 0, 1]],
+                      [[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, 2.0]],
+                      1280, 720, device=dev)
+    means = (torch.rand(n, 3, device=dev, generator=gen) - 0.5) * 0.6
+    scales = torch.rand(n, 3, device=dev, generator=gen) * 0.02 + 0.002
+    quats = torch.randn(n, 4, device=dev, generator=gen)
+    inp = dict(cam=cam, means=means,
+               cov=covariance_from_scaling_rotation(scales, quats),
+               feat=torch.randn(n, 16, 3, device=dev, generator=gen) * 0.3,
+               active=torch.rand(n, device=dev, generator=gen) < 0.9)
+    if articulated:
+        rot = torch.linalg.qr(torch.randn(n, 3, 3, device=dev,
+                                          generator=gen))[0]
+        tf = torch.zeros(n, 4, 4, device=dev)
+        tf[:, :3, :3] = rot
+        tf[:, :3, 3] = torch.randn(n, 3, device=dev, generator=gen) * 0.05
+        tf[:, 3, 3] = 1.0
+        inp["tf"] = tf
+        inp["cano"] = means + torch.randn(n, 3, device=dev,
+                                          generator=gen) * 0.02
+    return inp
+
+
+def project_check(inp, dev):
+    """The kernels against the plain chain on inp: (largest colour gap,
+    largest gradient gap over its leaf's largest entry)."""
+    leaves = {k: inp[k].clone().requires_grad_(True)
+              for k in ("means", "cov", "feat", "cano") if k in inp}
+    tf, cam = inp.get("tf"), inp["cam"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n = inp["means"].shape[0]
+    cot = [torch.randn(n, w, device=dev, generator=gen) for w in (2, 3, 3)]
+
+    def grads(p, colors):
+        loss = (p.means2d * cot[0]).sum() + (p.conic * cot[1]).sum() \
+            + (colors * cot[2]).sum()
+        return torch.autograd.grad(loss, list(leaves.values()))
+
+    colors = calculate_colors_from_sh(leaves["means"], leaves["feat"],
+                                      leaves.get("cano"), cam, 3, tf)
+    want = project_gaussians(leaves["means"], leaves["cov"], cam,
+                             active=inp["active"])
+    got, got_colors = proj_mod.project_gaussians_cuda(
+        leaves["means"], leaves["cov"], cam, active=inp["active"],
+        cano_means=leaves.get("cano"), features=leaves["feat"], sh_degree=3,
+        tf=tf)
+    for g, w, name in zip(got, want, want._fields):
+        check(torch.equal(g, w), f"project: {name} differs from the plain "
+              f"chain in {int((g != w).sum())} of {g.numel()} entries")
+    color_gap = ((got_colors - colors).abs().max()
+                 / colors.abs().max()).item()
+    check(color_gap <= PROJECT_COLOR_TOL,
+          f"project: colours {color_gap:.2e} from the plain chain")
+    grad_gap = 0.0
+    for name, g, w in zip(leaves, grads(got, got_colors),
+                          grads(want, colors)):
+        gap = ((g - w).abs().max() / w.abs().max()).item()
+        check(gap <= PROJECT_GRAD_TOL,
+              f"project: d {name} {gap:.2e} from autograd's")
+        grad_gap = max(grad_gap, gap)
+    return color_gap, grad_gap
+
+
+def project_phase(dev, ptxas_log):
+    """The projection kernels at the cells' shapes (docstring phase 15).
+    ptxas_log: the build's output for csrc/project.cu."""
+    out = {"project_fwd": {}, "project_bwd": {}}
+    for cell, n in PROJECT_ROWS.items():
+        inp = project_inputs(n, cell == "hand", dev)
+        color_gap, grad_gap = project_check(inp, dev)
+        cam = proj_mod.camera_tensors(inp["cam"], inp["means"].device)
+        size = (inp["cam"].width, inp["cam"].height)
+        tf, cano = inp.get("tf"), inp.get("cano")
+        gen = torch.Generator(device=dev).manual_seed(2)
+        cot = [torch.randn(n, w, device=dev, generator=gen)
+               for w in (2, 3, 3)]
+        fwd_args = (inp["means"], inp["cov"], inp["feat"], inp["active"],
+                    cano, tf)
+        bwd_args = fwd_args + tuple(cot)
+        # bytes: each input read once, each output written once
+        extra = 0 if tf is None else 12 + 64
+        fwd_bytes = n * (12 + 24 + 192 + 1 + extra + 8 + 12 + 4 + 4 + 16
+                         + 1 + 12)
+        bwd_bytes = n * (12 + 24 + 192 + 1 + extra + 8 + 12 + 12 + 12 + 24
+                         + 192 + (0 if tf is None else 12))
+        need = (True, True, tf is not None, True, False)
+
+        def fwd(means, cov, feat, active, cano_, tf_):
+            return proj_mod.project_fwd_cuda(means, cov, cam, *size, active,
+                                             cano_, feat, tf_, 3)
+
+        def bwd(means, cov, feat, active, cano_, tf_, gm, gc, gcol):
+            return proj_mod.project_bwd_cuda(
+                means, cov, cam, *size, active, cano_, feat, tf_, 3, gm, gc,
+                gcol, need)
+
+        def copies(args):
+            nbytes = sum(a.numel() * a.element_size() for a in args
+                         if a is not None)
+            k = max(2, -(-100 * 2**20 // nbytes) + 1)
+            return [tuple(None if a is None else a.clone() for a in args)
+                    for _ in range(k)]
+
+        fwd_ms = rotated_graph_ms(fwd, copies(fwd_args))
+        bwd_ms = rotated_graph_ms(bwd, copies(bwd_args))
+        leaves = {k: inp[k].clone().requires_grad_(True)
+                  for k in ("means", "cov", "feat", "cano") if k in inp}
+
+        def plain_fwd():
+            colors = calculate_colors_from_sh(
+                leaves["means"], leaves["feat"], leaves.get("cano"),
+                inp["cam"], 3, tf)
+            return project_gaussians(leaves["means"], leaves["cov"],
+                                     inp["cam"], active=inp["active"]), colors
+
+        def plain_step():
+            p, colors = plain_fwd()
+            loss = (p.means2d * cot[0]).sum() + (p.conic * cot[1]).sum() \
+                + (colors * cot[2]).sum()
+            return torch.autograd.grad(loss, list(leaves.values()))
+
+        with torch.no_grad():
+            plain_fwd_ms = cuda_ms(plain_fwd, 5)
+        # with grad, the forward also builds the graph the backward walks
+        plain_graph_ms = cuda_ms(plain_fwd, 5)
+        plain_step_ms = cuda_ms(plain_step, 5)
+        fwd_bound = bound_ms(fwd_bytes, 0, FP32_FLOP_PER_S)[0]
+        bwd_bound = bound_ms(bwd_bytes, 0, FP32_FLOP_PER_S)[0]
+        print(f"project {cell}: {n} rows at {size[0]}x{size[1]}, SH 3, "
+              f"{'tf' if tf is not None else 'no tf'}: forward {fwd_ms:.4f} "
+              f"ms (bound {fwd_bound:.4f}, {fwd_bytes / 1e6:.1f} MB), "
+              f"backward {bwd_ms:.4f} ms (bound {bwd_bound:.4f}, "
+              f"{bwd_bytes / 1e6:.1f} MB), HBM-cold; plain chain forward "
+              f"{plain_fwd_ms:.3f} ms ({plain_graph_ms:.3f} with grad), "
+              f"forward + backward {plain_step_ms:.3f} ms; colours "
+              f"{color_gap:.2e}, gradients "
+              f"{grad_gap:.2e} from the plain chain's")
+        out["project_fwd"][cell] = dict(
+            rows=n, ms=fwd_ms, bound_ms=fwd_bound, bound_by="bytes",
+            plain_ms=plain_fwd_ms, max_rel_err=color_gap)
+        out["project_bwd"][cell] = dict(
+            rows=n, ms=bwd_ms, bound_ms=bwd_bound, bound_by="bytes",
+            plain_ms=plain_step_ms - plain_graph_ms, max_rel_err=grad_gap)
+        del inp, leaves
+        torch.cuda.empty_cache()
+    ptxas = [ln.strip() for ln in ptxas_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"project ptxas: {ptxas}")
+    return out
 
 
 def composite_bounds(n_walk):
@@ -1776,12 +1965,12 @@ class Tee:
 
 
 def _run_cli(argv):
-    """cli.main(argv) with every kernel count (the search kernel's too,
-    as "nearest_neighbor") set to 0 just before and read just after. Returns (trainer, {kernel: launches}, log lines,
-    peak device MiB, wall s)."""
+    """cli.main(argv) with every kernel count of COUNTED set to 0 just
+    before and read just after. Returns (trainer, {kernel: launches}, log
+    lines, peak device MiB, wall s)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in COUNTERS.values():
+    for fn in (*COUNTERS.values(), *PROJECT_COUNTERS.values()):
         fn.launches = 0
     knn_mod.nearest_neighbor_cuda.launches = 0
     tee = Tee(sys.stdout)
@@ -1795,8 +1984,22 @@ def _run_cli(argv):
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
     launches["nearest_neighbor"] = knn_mod.nearest_neighbor_cuda.launches
+    launches.update({name: fn.launches
+                     for name, fn in PROJECT_COUNTERS.items()})
     return (tr, launches, tee.lines,
             torch.cuda.max_memory_allocated() / 2**20, wall)
+
+
+def check_projection(launches, what: str):
+    """One projection a render: the projection kernels of a _run_cli run
+    launched as often as the composite kernels, forward and backward
+    (both run in render_gaussians under backend "cuda", and no other
+    caller launches the composite kernels there)."""
+    got = (launches["project_fwd"], launches["project_bwd"])
+    want = (launches["composite_fwd"], launches["composite_bwd"])
+    check(got == want, f"{what}: the projection kernels launched {got[0]} "
+          f"/ {got[1]} times (forward / backward), the composite kernels "
+          f"{want[0]} / {want[1]}")
 
 
 def cache_mb(cache) -> float:
@@ -1900,6 +2103,7 @@ def trainer_phase(bare_ms):
         check(launches[name] == n,
               f"trainer: {name} launched {launches[name]} times, not {n}")
     check(n_eval >= 4, f"trainer: {n_eval} eval renders")
+    check_projection(launches, "trainer")
     del tr, back
 
     rtr, rlaunches, rlines, rpeak, rwall = _run_cli([
@@ -1915,6 +2119,7 @@ def trainer_phase(bare_ms):
           "trainer: the resume did not start from a checkpoint")
     check(rlaunches["lpips_head_bwd"] == 5 * TRAINER_RESUME_STEPS,
           "trainer resume: LPIPS is not on from the first step")
+    check_projection(rlaunches, "trainer resume")
     del rtr
     return launches, run_dir
 
@@ -2158,6 +2363,7 @@ def composite_phase(dev, hand_run_dir):
         check(all(launches[n] == 0 for n in COUNTERS
                   if not n.startswith("composite")),
               f"composite {mode}: an LPIPS kernel ran")
+        check_projection(launches, f"composite {mode}")
         acc = np.load(os.path.join(_ours_dir(exp), "acc_contacts.npy"))
         check(acc.shape == (run.models.hand.capacity,) and acc.dtype ==
               np.float32, f"composite {mode}: acc_contacts.npy {acc.shape}")
@@ -2718,6 +2924,7 @@ def render_phase(dev, hand_run_dir, val_psnr):
     check(path_fwd == PATH_FRAMES and all(
         launches[n] == 0 for n in COUNTERS if n != "composite_fwd"),
           f"render_path: launches {launches}")
+    check_projection(launches, "render_path")
     check(lit > 0.005, "render_path: the hand is not in the frames")
     video = read_video(run.video)
     check(len(video) == PATH_FRAMES and all(
@@ -2753,6 +2960,7 @@ def render_phase(dev, hand_run_dir, val_psnr):
           f"renders and one a frame); peak {tpeak:.1f} MiB")
     check(tl["composite_fwd"] == n_gt + len(trun.records),
           f"test: {tl['composite_fwd']} composite launches")
+    check_projection(tl, "test (worst_cases)")
     check([r["psnr"] for r in ranked] == sorted(psnrs),
           "test: worst_cases.json is not ranked ascending")
     mean_psnr = statistics.mean(psnrs)
@@ -2768,6 +2976,7 @@ def render_phase(dev, hand_run_dir, val_psnr):
     check(cl["composite_fwd"] == CANO_FRAMES and len(crun.frames) ==
           CANO_FRAMES and crun.video.endswith("test_cano.apng"),
           "test canonical: frames or launches")
+    check_projection(cl, "test canonical")
     check(all(np.array_equal(a, b) for a, b in zip(crun.frames,
                                                    read_video(crun.video))),
           "test canonical: the video does not read back")
@@ -3155,6 +3364,7 @@ def _brics_runs(dev, dyn, static):
         check(launches[name] == n,
               f"brics hand: {name} launched {launches[name]} times, not {n}")
     check(n_eval >= 1, f"brics hand: {n_eval} eval renders")
+    check_projection(launches, "brics hand")
     brics_batch_checks(tr, dev)
     hand_dir = tr.out_dir
     tr.dataset.close()
@@ -3190,6 +3400,7 @@ def _brics_runs(dev, dyn, static):
         "brics object: validation on the 2 held-out cameras")
     check(olaunches["composite_bwd"] == BRICS_OBJ_STEPS,
           f"brics object: composite_bwd {olaunches['composite_bwd']}")
+    check_projection(olaunches, "brics object")
     _loss_falls(otr.out_dir, "object")
     obj_dir = otr.out_dir
     del otr
@@ -3317,6 +3528,7 @@ def brics_forms_train(dev):
         check(launches[name] == n, f"brics forms: {name} launched "
               f"{launches[name]} times, not {n}")
     check(n_eval >= 1, f"brics forms: {n_eval} eval renders")
+    check_projection(launches, "brics forms")
     brics_batch_checks(tr, dev)
     tr.dataset.close()
     tr.val_dataset.close()
@@ -3723,6 +3935,8 @@ def parallel_phase(cfg, model, batch, dev):
                   f"not {want}")
             check(r[name]["launches"]["composite_bwd"] == PAR_STEPS
                   * local_views, f"parallel {name}: backward launches")
+            check_projection(r[name]["launches"],
+                             f"parallel {name} rank {r['rank']}")
             # every collective on a CUDA tensor; the state checks' digests
             # are gathered from the host
             check(r[name]["collectives"]["host_staged"] > 0,
@@ -3749,7 +3963,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     # the four kernel sources (nvcc) and the host assembly (g++)
-    names = ["composite", "conv3x3", "lpips_head", "knn", "image_ops"]
+    names = ["composite", "conv3x3", "lpips_head", "knn", "project",
+             "image_ops"]
     cached = [n for n in names if cuda_build.library_path(n).exists()
               and cuda_build.log_path(n).exists()]
     logs = cuda_build.build(names)
@@ -3793,6 +4008,7 @@ def main() -> int:
           "without)")
     launches.update({n: lpips_launches[n] for n in lpips_results})
     results.update(knn_phase(dev, logs["knn"]))
+    results.update(project_phase(dev, logs["project"]))
 
     flagship_ms = flagship_phase(dev)
     print(f"flagship step: median {flagship_ms:.3f} ms (the primary plain "
@@ -3842,7 +4058,12 @@ def main() -> int:
               source="manus_tpu_torch/csrc/knn.cu",
               replaces="none (the JAX package's nearest_neighbor is plain "
                        "JAX)", launches=comp_launches["nearest_neighbor"],
-              library_ms=None, **results["nearest_neighbor"])]
+              library_ms=None, **results["nearest_neighbor"])] + [
+        dict(name=name, route="cuda", source="manus_tpu_torch/csrc/project.cu",
+             replaces="none (the JAX package's calculate_colors_from_sh and "
+                      "project_gaussians are plain JAX)",
+             launches=launches[name], library_ms=None, **results[name])
+        for name in PROJECT_COUNTERS]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

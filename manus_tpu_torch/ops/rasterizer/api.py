@@ -7,8 +7,10 @@ flow to means, covariances, colours and opacities. The densification
 `means2d_offset` that requires grad and differentiate the loss w.r.t. it.
 
 Backends:
-  * "cuda":   binned tiles, the hand-written CUDA composite kernels;
-  * "torch":  binned tiles, the kernels' plain PyTorch version;
+  * "cuda":   the projection kernels (projection.project_gaussians_cuda:
+              SH colours and the EWA projection, one launch each way),
+              binned tiles, the hand-written CUDA composite kernels;
+  * "torch":  binned tiles, the kernels' plain PyTorch versions;
   * "oracle": dense per-pixel compositing (small scenes, ground truth).
 
 Sharded over the gaussians (`gauss_group`, a row of the rank mesh,
@@ -45,6 +47,7 @@ from manus_tpu_torch.ops.rasterizer.projection import (
     TILE,
     ProjectedGaussians,
     project_gaussians,
+    project_gaussians_cuda,
 )
 from manus_tpu_torch.parallel.collectives import (
     all_gather_stack,
@@ -163,15 +166,23 @@ def render_gaussians(
                          "use backend='torch' on the CPU")
     n = posed_means.shape[0]
     opacity = cano_opacity.reshape(n)
+    precomp = colors_precomp is not None
     with trace.span("raster.project"):
-        if colors_precomp is None:
-            colors = calculate_colors_from_sh(
+        if config.backend == "cuda":
+            proj, colors = project_gaussians_cuda(
+                posed_means, posed_cov, camera, active=active,
+                cano_means=cano_means,
+                features=None if precomp else cano_features,
+                sh_degree=-1 if precomp else sh_degree, tf=tf)
+            trace.count("raster.project_kernel", 1)
+        else:
+            colors = None if precomp else calculate_colors_from_sh(
                 posed_means, cano_features, cano_means, camera, sh_degree,
                 tf)
-        else:
+            proj = project_gaussians(posed_means, posed_cov, camera,
+                                     active=active)
+        if precomp:
             colors = colors_precomp
-        proj = project_gaussians(posed_means, posed_cov, camera,
-                                 active=active)
         if gauss_group is not None:
             proj, colors, opacity = _gather_fields(proj, colors, opacity,
                                                    gauss_group)

@@ -12,13 +12,22 @@ The upstream-3DGS forward projection contract:
 
 Differentiable; radius, tile rect and visibility are detached (they only
 steer binning).
+
+On a card, render_gaussians takes `project_gaussians_cuda` instead: the
+kernels of csrc/project.cu compute this projection and the SH colours
+(api.calculate_colors_from_sh) in one launch forward and one backward,
+under an autograd Function, where the plain pair is ~260-320 torch
+operations a view and ~360 more in autograd's backward. The plain pair
+stays the CPU's path and the one the kernels are held to.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
+from manus_tpu_torch.utils import cuda_build
 from manus_tpu_torch.utils.camera import Camera
 
 FRUSTUM_NEAR_Z = 0.2
@@ -146,3 +155,229 @@ def project_gaussians(
         tile_rect=tile_rect,
         visible=visible,
     )
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels (csrc/project.cu).
+
+# The most SH coefficients a row the kernels take (degree 4; kMaxCoeffs in
+# csrc/project.cu).
+PROJECT_MAX_COEFFS = 25
+
+_P, _I32 = ctypes.c_void_p, ctypes.c_int
+# n, k, deg, width, height; means, cov, cano, feat, tf, active; the
+# camera's six tensors
+_INPUTS = [_I32] * 5 + [_P] * 6 + [_P] * 6
+_SIGNATURES = {
+    # ... means2d, conic, depth, radius, rect, visible, colors; stream
+    "project_forward": (_INPUTS + [_P] * 7 + [_P], ctypes.c_int),
+    # ... g_means2d, g_conic, g_colors; d_means, d_cov, d_cano, d_feat,
+    # d_tf; stream
+    "project_backward": (_INPUTS + [_P] * 3 + [_P] * 5 + [_P],
+                         ctypes.c_int),
+    "project_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
+def project_library():
+    return cuda_build.load("project", _SIGNATURES)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check(t, name, shape, dtype, dev):
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} {shape} "
+                         f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} "
+                         f"on {t.device}")
+
+
+def camera_tensors(camera: Camera, dev) -> tuple:
+    """The six camera tensors the kernels read (world_view_transform,
+    full_proj_transform, extr, camera_center, fovx, fovy), contiguous
+    float32 on `dev`; the host reads none of them back."""
+    fields = (("world_view_transform", (4, 4)), ("full_proj_transform",
+              (4, 4)), ("extr", (4, 4)), ("camera_center", (3,)),
+              ("fovx", ()), ("fovy", ()))
+    out = []
+    for name, shape in fields:
+        t = getattr(camera, name).contiguous()
+        _check(t, f"camera.{name}", shape, torch.float32, dev)
+        out.append(t)
+    return tuple(out)
+
+
+def _check_inputs(means, cov, cam, active, cano, feat, tf, sh_degree):
+    """The kernels' inputs as csrc/project.cu takes them, or ValueError.
+    Returns (n, coefficients a row)."""
+    dev = means.device
+    if not means.is_cuda:
+        raise ValueError("the CUDA projection needs CUDA tensors")
+    n = means.shape[0]
+    _check(means, "means", (n, 3), torch.float32, dev)
+    _check(cov, "cov", (n, 6), torch.float32, dev)
+    if active is not None:
+        _check(active, "active", (n,), torch.bool, dev)
+    if (cano is None) != (tf is None):
+        raise ValueError("cano and tf go together (an articulated model's "
+                         "SH directions)")
+    if tf is not None:
+        _check(cano, "cano", (n, 3), torch.float32, dev)
+        _check(tf, "tf", (n, 4, 4), torch.float32, dev)
+    if sh_degree < 0:
+        if feat is not None:
+            raise ValueError("features without an SH degree")
+        return n, 0
+    if not 0 <= sh_degree <= 4:
+        raise ValueError(f"SH degree must be 0..4, got {sh_degree}")
+    if feat is None or feat.dim() != 3:
+        raise ValueError("SH colours need [N, K, 3] features")
+    k = feat.shape[1]
+    if k < (sh_degree + 1) ** 2:
+        raise ValueError(f"{k} SH coefficients < {(sh_degree + 1) ** 2} "
+                         f"for degree {sh_degree}")
+    if k > PROJECT_MAX_COEFFS:
+        raise ValueError(f"the CUDA projection takes at most "
+                         f"{PROJECT_MAX_COEFFS} SH coefficients a row, got "
+                         f"{k}")
+    _check(feat, "features", (n, k, 3), torch.float32, dev)
+    return n, k
+
+
+def _raise_on(rc: int, what: str, lib):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.project_error_string(rc).decode()} ({rc})")
+
+
+def project_fwd_cuda(means, cov, cam, width: int, height: int, active=None,
+                     cano=None, feat=None, tf=None, sh_degree: int = -1):
+    """Launch the forward kernel: `means` [N, 3] and `cov` [N, 6] posed,
+    under the camera `cam` (camera_tensors) at width x height; with
+    sh_degree >= 0 also the SH colours of `feat` [N, K, 3], from the
+    camera centre or, with `tf` [N, 4, 4], from it pulled back through
+    inv(tf) against `cano` [N, 3]. Returns (means2d, conic, depth,
+    radius, tile_rect, visible, colors or None), as project_gaussians and
+    calculate_colors_from_sh give them. No host sync."""
+    n, k = _check_inputs(means, cov, cam, active, cano, feat, tf, sh_degree)
+    dev = means.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    means2d = torch.empty(n, 2, **f32)
+    conic = torch.empty(n, 3, **f32)
+    depth = torch.empty(n, **f32)
+    radius = torch.empty(n, **i32)
+    rect = torch.empty(n, 4, **i32)
+    visible = torch.empty(n, dtype=torch.bool, device=dev)
+    colors = torch.empty(n, 3, **f32) if sh_degree >= 0 else None
+    if n:
+        lib = project_library()
+        rc = lib.project_forward(
+            n, k, sh_degree, width, height, means.data_ptr(),
+            cov.data_ptr(), _ptr(cano), _ptr(feat), _ptr(tf), _ptr(active),
+            *(t.data_ptr() for t in cam), means2d.data_ptr(),
+            conic.data_ptr(), depth.data_ptr(), radius.data_ptr(),
+            rect.data_ptr(), visible.data_ptr(), _ptr(colors),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(rc, "project_forward", lib)
+        project_fwd_cuda.launches += 1
+    return means2d, conic, depth, radius, rect, visible, colors
+
+
+project_fwd_cuda.launches = 0
+
+
+def project_bwd_cuda(means, cov, cam, width: int, height: int, active, cano,
+                     feat, tf, sh_degree: int, g_means2d, g_conic, g_colors,
+                     need=(True,) * 5):
+    """Launch the backward kernel on project_fwd_cuda's inputs and the
+    gradients of means2d [N, 2], conic [N, 3] and colors [N, 3] (None for
+    zero). Returns the gradients of (means, cov, cano, feat, tf), each
+    None where `need` says so or the input is None. No host sync."""
+    n, k = _check_inputs(means, cov, cam, active, cano, feat, tf, sh_degree)
+    dev = means.device
+    grads = []
+    for g, name, width_ in ((g_means2d, "g_means2d", 2),
+                            (g_conic, "g_conic", 3),
+                            (g_colors, "g_colors", 3)):
+        if g is not None:
+            g = g.contiguous()
+            _check(g, name, (n, width_), torch.float32, dev)
+        grads.append(g)
+    if sh_degree < 0:
+        grads[2] = None
+    outs = [torch.empty_like(x) if x is not None and want else None
+            for x, want in zip((means, cov, cano, feat, tf), need)]
+    if n and any(o is not None for o in outs):
+        lib = project_library()
+        rc = lib.project_backward(
+            n, k, sh_degree, width, height, means.data_ptr(),
+            cov.data_ptr(), _ptr(cano), _ptr(feat), _ptr(tf), _ptr(active),
+            *(t.data_ptr() for t in cam), *(_ptr(g) for g in grads),
+            *(_ptr(o) for o in outs),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(rc, "project_backward", lib)
+        project_bwd_cuda.launches += 1
+    return tuple(outs)
+
+
+project_bwd_cuda.launches = 0
+
+
+class _Project(torch.autograd.Function):
+    """project_fwd_cuda with project_bwd_cuda as its backward; depth,
+    radius, tile_rect and visible carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, means, cov, cano, feat, tf, active, cam, size,
+                sh_degree):
+        ctx.set_materialize_grads(False)
+        out = project_fwd_cuda(means, cov, cam, *size, active, cano, feat,
+                               tf, sh_degree)
+        ctx.save_for_backward(means, cov, cano, feat, tf, active)
+        ctx.cam, ctx.size, ctx.sh_degree = cam, size, sh_degree
+        ctx.mark_non_differentiable(*out[2:6])
+        return out
+
+    @staticmethod
+    def backward(ctx, g_means2d, g_conic, g_depth, g_radius, g_rect,
+                 g_visible, g_colors):
+        del g_depth, g_radius, g_rect, g_visible
+        need = ctx.needs_input_grad[:5]
+        if not any(need):
+            return (None,) * 9
+        means, cov, cano, feat, tf, active = ctx.saved_tensors
+        grads = project_bwd_cuda(means, cov, ctx.cam, *ctx.size, active,
+                                 cano, feat, tf, ctx.sh_degree, g_means2d,
+                                 g_conic, g_colors, need)
+        return (*grads, None, None, None, None)
+
+
+def project_gaussians_cuda(
+    means3d: torch.Tensor,
+    cov3d: torch.Tensor,
+    camera: Camera,
+    active: torch.Tensor | None = None,
+    cano_means: torch.Tensor | None = None,
+    features: torch.Tensor | None = None,
+    sh_degree: int = -1,
+    tf: torch.Tensor | None = None,
+):
+    """project_gaussians and, with features and sh_degree >= 0,
+    api.calculate_colors_from_sh (cano_means is read only with tf) in the
+    kernels of csrc/project.cu, differentiable. Returns
+    (ProjectedGaussians, colors [N, 3] or None). CUDA tensors only: a call
+    the kernels cannot take raises."""
+    dev = means3d.device
+    cam = camera_tensors(camera, dev)
+    cano = cano_means.contiguous() if tf is not None else None
+    feat = features.contiguous() if sh_degree >= 0 else None
+    out = _Project.apply(
+        means3d.contiguous(), cov3d.contiguous(), cano, feat,
+        None if tf is None else tf.contiguous(),
+        None if active is None else active.contiguous(), cam,
+        (camera.width, camera.height), sh_degree)
+    return ProjectedGaussians(*out[:6]), out[6]

@@ -44,7 +44,8 @@ run. The spans the port opens:
   composite.contacts  make_composite_render's two contact searches
   composite.png       a frame's 8-bit cast and its PNG
   raster.project      render_gaussians: SH colours, the EWA projection
-                      (and a sharded render's gather of the fields)
+                      (one kernel on the card, csrc/project.cu; and a
+                      sharded render's gather of the fields)
   raster.bin          binning: pairs, their sort, the tiles' segments
   raster.composite    the payload, the composite and the image
 
@@ -59,6 +60,8 @@ Chrome trace export carries them as counter events ("ph": "C"). The
 counters the port records:
 
   gaussians.live            live slots after a train step (make_train_step)
+  raster.project_kernel     1 a view whose projection stage took the CUDA
+                            kernels (render_gaussians, backend "cuda")
   raster.pairs_emitted      a view's (gaussian, tile) pairs before any
                             drop rule: kept plus dropped
   raster.pairs_kept         the pairs the view composites (TileBins'
