@@ -79,10 +79,10 @@ Phases, each of which exits non-zero on failure:
      validation and checkpoints (200, 400) all fire and the LPIPS loss
      runs from step 100 through the gt feature cache. The loss must fall,
      the gt feature cache must be built, the last checkpoint must load
-     back equal leaf for leaf, the raster backend must be "cuda", and
-     every kernel's launches over the run must be what the run implies
-     (the composite backward once a step; the dx and the heads once a
-     layer or stage and LPIPS step); then the run is resumed from its
+     back equal leaf for leaf, and every kernel's launches over the run
+     must be what the run implies (the composite backward once a step,
+     so the raster took the kernels; the dx and the heads once a layer
+     or stage and LPIPS step); then the run is resumed from its
      directory with checkpoint=best for TRAINER_RESUME_STEPS steps. The
      run's checkpoints and PLYs (about 0.8 GB) are deleted afterwards;
      its config, CSVs and images stay;
@@ -153,8 +153,9 @@ Phases, each of which exits non-zero on failure:
      the CLI (BRICS_CAPACITY slots, BRICS_STEPS steps, LPIPS with random
      features from BRICS_LPIPS_FROM, the device image cache off so that
      every batch is read and assembled in the prefetch thread): the loss
-     falls, the backend is cuda, each kernel's launches are what the run
-     implies (the gt's VGG16 forward every LPIPS step), and on one batch
+     falls, each kernel's launches are what the run implies (the
+     composite backward once a step; the gt's VGG16 forward every LPIPS
+     step), and on one batch
      both composite kernels against their plain version and
      lpips_distance with its image gradient against the plain chain on
      the CPU; OBJ_GAUSSIAN on the static capture (BRICS_OBJ_STEPS steps
@@ -167,8 +168,8 @@ Phases, each of which exits non-zero on failure:
      "latest", creation order, dense groups, lzf and gzip + shuffle +
      fletcher32 crops); (c) HAND_GAUSSIAN on capture/ through the CLI as
      above but for FORMS_STEPS steps with LPIPS from FORMS_LPIPS_FROM:
-     the loss falls, the backend is cuda, the launches are what the run
-     implies, and the batch checks above on one batch; (d) a 1280x720
+     the loss falls, the launches are what the run implies, and the
+     batch checks above on one batch; (d) a 1280x720
      view's get_batch ms from capture/ beside the write_tree capture's.
      The captures, checkpoints and PLYs are deleted afterwards.
 
@@ -211,7 +212,8 @@ Phases, each of which exits non-zero on failure:
      segments dealt to the owners, gathered and un-permuted, equal to the
      full-grid launch's rows bit for bit; each owner's depth ranges of the
      PAR_HOT deepest tiles (hybrid) against the plain version, composed
-     (api._over_compose) within HYBRID_ATOL of the full grid. (b) The
+     (parallel/raster.py's _over_compose) within HYBRID_ATOL of the full
+     grid. (b) The
      training CLI as ranks that share the card, each its own process,
      over gloo (NCCL refuses two ranks on one card), every collective on
      a CUDA tensor staged through the host by the group's backend and
@@ -282,7 +284,6 @@ from manus_tpu_torch.ops import conv as conv_mod
 from manus_tpu_torch.ops import knn as knn_mod
 from manus_tpu_torch.ops import outliers
 from manus_tpu_torch.ops.contacts import CONTACT_THRESHOLD, contact_map
-from manus_tpu_torch.ops.rasterizer import api as api_mod
 from manus_tpu_torch.ops.rasterizer import composite
 from manus_tpu_torch.ops.rasterizer.api import (
     RasterConfig,
@@ -302,6 +303,7 @@ from manus_tpu_torch.ops.skinning import (
 )
 from manus_tpu_torch import main as cli
 from manus_tpu_torch.parallel import collectives
+from manus_tpu_torch.parallel import raster as par_raster
 from manus_tpu_torch.parallel.distributed import initialize_distributed
 from manus_tpu_torch.parallel.mesh import (
     check_replicated,
@@ -2022,8 +2024,6 @@ def trainer_phase(bare_ms):
     tr, launches, lines, peak_mb, wall = _run_cli(TRAINER_ARGS)
     run_dir = tr.out_dir
     t = tr.timings
-    check(tr.cfg.raster.backend == "cuda",
-          f"trainer: raster backend {tr.cfg.raster.backend!r}")
     check(tr.device.type == "cuda", f"trainer: ran on {tr.device}")
     ds = tr.dataset
     n_img = ds.num_frames * ds.num_views
@@ -3351,8 +3351,7 @@ def _brics_runs(dev, dyn, static):
           f"launches {launches} (composite forward: {BRICS_STEPS} steps, "
           f"{n_eval} eval renders; LPIPS kernels: {n_lpips} steps, the gt's "
           f"VGG16 forward each step without the image cache)")
-    check(tr.cfg.raster.backend == "cuda" and tr.device.type == "cuda",
-          f"brics hand: backend {tr.cfg.raster.backend} on {tr.device}")
+    check(tr.device.type == "cuda", f"brics hand: ran on {tr.device}")
     check(tr._device_cache is None and calls >= BRICS_STEPS,
           f"brics hand: {calls} assemblies for {BRICS_STEPS} steps")
     _loss_falls(tr.out_dir, "hand")
@@ -3515,8 +3514,7 @@ def brics_forms_train(dev):
           f"{FORMS_LPIPS_FROM} and "
           f"{_step_ms(tr, FORMS_LPIPS_FROM + WARMUP, None):.3f} with LPIPS; "
           f"peak {peak:.1f} MiB; {calls} C++ assemblies; launches {launches}")
-    check(tr.cfg.raster.backend == "cuda" and tr.device.type == "cuda",
-          f"brics forms: backend {tr.cfg.raster.backend} on {tr.device}")
+    check(tr.device.type == "cuda", f"brics forms: ran on {tr.device}")
     check(tr._device_cache is None and calls >= FORMS_STEPS,
           f"brics forms: {calls} assemblies for {FORMS_STEPS} steps")
     _loss_falls_in_segments(tr.out_dir, "forms hand", FORMS_LPIPS_FROM)
@@ -3559,7 +3557,7 @@ PAR_ARGS = [
     "loss.lpips_gt_cache_mb=8192",
 ]
 # Hybrid's hot tiles are composed of the ranks' depth ranges with the
-# 1e-4 stop applied per part (api._over_compose), as in JAX: a part that
+# 1e-4 stop applied per part (par_raster._over_compose), as in JAX: a part that
 # starts above T = 1e-4 is added whole, so a pixel may take pairs beyond
 # the one-walk stop, each weighted by T < 1e-4 (colours <= ~1), and its
 # T_final may end lower by up to 1e-4. Besides that, FWD_ATOL's rounding
@@ -3583,8 +3581,8 @@ def par_bins(cfg, proj, ntx, nty, **kw):
 
 
 def hot_slots(bins, col, n, k):
-    """Column col's depth ranges of the k deepest tiles (api._composite's
-    hybrid rule): (offsets, counts, tile ids)."""
+    """Column col's depth ranges of the k deepest tiles (the hybrid rule
+    of parallel/raster.py): (offsets, counts, tile ids)."""
     hot = torch.argsort(-bins.tile_counts, stable=True)[:k]
     cnt, off = bins.tile_counts[hot], bins.tile_offsets[hot]
     share = -(-cnt // n)
@@ -3671,8 +3669,8 @@ def tile_id_kernels(cfg, model, batch, dev):
                                                 hot)[:2]
             hot_rgb.append(r)
             hot_t.append(t)
-        rgb_h, t_h = api_mod._over_compose(torch.stack(hot_rgb),
-                                           torch.stack(hot_t))
+        rgb_h, t_h = par_raster._over_compose(torch.stack(hot_rgb),
+                                              torch.stack(hot_t))
         hot = hot.long()
         err = torch.maximum((rgb_h - rgb_f[hot]).abs().amax(1),
                             (t_h - t_f[hot]).abs())

@@ -8,8 +8,8 @@ overrides, and a snapshot in the run directory.
 
 The raster backend names differ. The JAX package names "auto", "xla" and
 "pallas"; the port "cuda" (the hand-written kernels), "torch" (their
-plain version) and "oracle". `resolve_raster_backend` maps either onto
-the device a run uses.
+plain version) and "oracle". The raster resolves either against its
+tensors' device (ops/rasterizer/api.py).
 """
 from __future__ import annotations
 
@@ -17,8 +17,6 @@ import dataclasses
 import json
 import os
 from typing import Any, Optional, Tuple
-
-import torch
 
 from manus_tpu_torch.models.gaussians import GaussianOpts
 
@@ -100,8 +98,8 @@ class LossConfig:
     # k > 1 average-pools pred and gt k x k before the VGG (opt-in; the
     # reference runs LPIPS at full resolution).
     lpips_downsample: int = 1
-    # conv engine: "auto" or "pallas", both the layout conv chain (the
-    # port's only one; make_train_step rejects any other).
+    # conv engine: "auto" (the layout conv chain for VGG16) or one of
+    # train/lpips.py ENGINES (lpips.resolve_lpips_engine).
     lpips_conv: str = "auto"
     # budget (MB) of the trainer's gt LPIPS feature cache; 0 = off
     lpips_gt_cache_mb: int = 4096
@@ -117,14 +115,14 @@ class RasterOptions:
     max_pairs_per_tile: int = 4096
     # "cuda" (the hand-written kernels), "torch" (their plain version) or
     # "oracle" (dense per-pixel compositing); the JAX package's names map
-    # through resolve_raster_backend
+    # onto these as ops/rasterizer/api.py says
     backend: str = "cuda"
     lane_align: int = 128
     # aligned pair-buffer cap as a multiple of N (0 = off)
     pair_budget_factor: int = 8
     # static multi-tile gaussian capacity as a fraction of N (binning.py)
     multi_frac: float = 1.0
-    # gauss-axis composite split (multi-device, not ported)
+    # the gauss-axis composite split (parallel/raster.py)
     tile_shard_mode: str = "owner"
     hot_split_tiles: int = 8
 
@@ -225,33 +223,6 @@ CONFIGS = {
     "HAND_GAUSSIAN": hand_config,
     "COMPOSITE": composite_config,
 }
-
-PORT_BACKENDS = ("cuda", "torch", "oracle")
-JAX_BACKENDS = ("auto", "pallas", "xla")
-
-
-def resolve_raster_backend(name: str, device) -> str:
-    """The port's raster backend for a config's `raster.backend` on
-    `device`.
-
-    On a CUDA device "auto", "pallas" and "cuda" are the kernels; "xla",
-    the JAX package's plain path, raises rather than run the plain
-    version on the card unnoticed ("torch" and "oracle" name it
-    explicitly). On the CPU every kernel name means its plain version,
-    "torch", as the kernel wrappers do for CPU tensors.
-    """
-    if name not in PORT_BACKENDS + JAX_BACKENDS:
-        raise ValueError(f"unknown raster.backend {name!r}; one of "
-                         f"{PORT_BACKENDS + JAX_BACKENDS}")
-    if torch.device(device).type == "cuda":
-        if name == "xla":
-            raise ValueError(
-                "raster.backend='xla' names the JAX package's plain path; "
-                "on a CUDA device choose 'cuda' (or 'auto'/'pallas', the "
-                "kernels), or 'torch'/'oracle' for a plain version")
-        return "cuda" if name in ("auto", "pallas") else name
-    return "oracle" if name == "oracle" else "torch"
-
 
 def _tuple_element_type(old: tuple, ftype: str):
     """Element type for a tuple override: the current value's, or from the

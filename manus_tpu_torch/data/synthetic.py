@@ -19,11 +19,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from manus_tpu_torch.config import resolve_raster_backend
 from manus_tpu_torch.data import REFERENCE_DATA
 from manus_tpu_torch.models.gaussians import GaussianModel
 from manus_tpu_torch.ops.knn import nearest_neighbor
-from manus_tpu_torch.ops.rasterizer.api import RasterConfig, render_gaussians
+from manus_tpu_torch.ops.rasterizer.api import render_gaussians
 from manus_tpu_torch.ops.skinning import (
     bone_deformation_transforms,
     skin_gaussians,
@@ -238,15 +237,14 @@ def _bg(bg_color: str) -> np.ndarray:
         else np.ones(3, np.float32)
 
 
-def _render_gt(means, cov6, colors, opacity, cam, bg, device, backend):
+def _render_gt(means, cov6, colors, opacity, cam, bg, device):
     """One gt view: the render and its mask (final transmittance < 0.5),
     as numpy."""
     n = means.shape[0]
     with torch.no_grad():
         out = render_gaussians(
             means, cov6, means, torch.zeros(n, 16, 3, device=device),
-            opacity, cam, bg, colors_precomp=colors,
-            config=RasterConfig(backend=backend))
+            opacity, cam, bg, colors_precomp=colors)
     return out.render.cpu().numpy(), (out.t_final < 0.5).cpu().numpy()[..., None]
 
 
@@ -291,7 +289,6 @@ def build_synthetic_static(
     bg_color="black", device=None,
 ) -> SyntheticStaticDataset:
     device = resolve_device(device)
-    backend = resolve_raster_backend("cuda", device)
     cams = hemisphere_cameras(num_cameras, width, height, seed=seed,
                               device=device)
     gt = gt_object_gaussians(n_gaussians, seed=seed)
@@ -301,7 +298,7 @@ def build_synthetic_static(
 
     bg = t(_bg(bg_color))
     views = [_render_gt(t(gt["means"]), t(gt["cov6"]), t(gt["colors"]),
-                        t(gt["opacity"]), c, bg, device, backend)
+                        t(gt["opacity"]), c, bg, device)
              for c in cams]
     return SyntheticStaticDataset(
         cameras=stack_cameras(cams),
@@ -358,7 +355,6 @@ def build_synthetic_dynamic(
     use_reference_skeleton=True, device=None,
 ) -> SyntheticDynamicDataset:
     device = resolve_device(device)
-    backend = resolve_raster_backend("cuda", device)
     skel = load_reference_skeleton() if use_reference_skeleton else None
     if skel is None:
         skel = procedural_skeleton(max(num_frames, 2))
@@ -426,8 +422,7 @@ def build_synthetic_dynamic(
                 pose_T, bones_rest.transforms))
         for vi, c in enumerate(cams):
             images[fi, vi], masks[fi, vi] = _render_gt(
-                sk.posed_xyz, sk.posed_cov, cols_d, opac_d, c, bg, device,
-                backend)
+                sk.posed_xyz, sk.posed_cov, cols_d, opac_d, c, bg, device)
 
     return SyntheticDynamicDataset(
         cameras=stack_cameras(cams),

@@ -87,7 +87,6 @@ from manus_tpu_torch.config import (
     CONFIGS,
     apply_overrides,
     load_config_snapshot,
-    resolve_raster_backend,
     save_config,
 )
 from manus_tpu_torch.data import synthetic
@@ -107,7 +106,10 @@ from manus_tpu_torch.models.gaussians import (
     init_gaussian_model,
 )
 from manus_tpu_torch.ops.knn import knn_indices
-from manus_tpu_torch.ops.rasterizer.api import render_gaussians
+from manus_tpu_torch.ops.rasterizer.api import (
+    render_gaussians,
+    resolve_raster_backend,
+)
 from manus_tpu_torch.ops.skinning import (
     bone_deformation_transforms,
     skin_gaussians,
@@ -330,8 +332,6 @@ def run_composite(cfg, out_dir, device=None) -> CompositeRun:
     device = resolve_device(device)
     mode = cfg.contact_render_type
     raster_cfg = make_raster_config(cfg)
-    raster_cfg = raster_cfg._replace(
-        backend=resolve_raster_backend(raster_cfg.backend, device))
     render_fn = make_composite_render(cfg, raster_cfg, mode)  # checks mode
     dataset = build_dataset(cfg, "test", device)
     hand, hand_vg = _load_model(cfg.hand_ckpt_dir, device)
@@ -454,9 +454,7 @@ class RenderRun(NamedTuple):
 
 def _load_render_model(cfg, device):
     model, voxel_grid = _load_model(cfg.render_ckpt_dir, device)
-    raster_cfg = make_raster_config(cfg)
-    return model, voxel_grid, raster_cfg._replace(
-        backend=resolve_raster_backend(raster_cfg.backend, device))
+    return model, voxel_grid, make_raster_config(cfg)
 
 
 def _make_render_one(cfg, model, voxel_grid, raster_cfg):

@@ -418,14 +418,13 @@ def plan_row_tiles(L: StageLayout, plan: ConvPlan) -> list:
 # CUDA wrappers.
 
 _P, _I32 = ctypes.c_void_p, ctypes.c_int
-_CONV_SIGNATURES = {
+CONV_LIBRARY = cuda_build.Kernels("conv3x3", {
     "conv3x3_layout": (
         [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
          _I32, _I32, _I32, _P],
         ctypes.c_int),
-    "conv3x3_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
-_HEAD_SIGNATURES = {
+})
+HEAD_LIBRARY = cuda_build.Kernels("lpips_head", {
     "lpips_head_fwd": ([_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P, _P,
                         _P], ctypes.c_int),
     "lpips_head_bwd": ([_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P,
@@ -435,25 +434,17 @@ _HEAD_SIGNATURES = {
     "lpips_head_bwd_f32": ([_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                             _P, _P, _P], ctypes.c_int),
     "lpips_head_workspace_words": ([_I32], ctypes.c_int),
-    "lpips_head_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
+})
 # The widest head the kernels take; C must also be a multiple of 8 (a row
 # is read as 16-byte vectors of 8 bf16 channels, or two of 8 fp32 ones).
 HEAD_MAX_C = 512
 HEAD_DTYPES = (torch.bfloat16, torch.float32)
-
-
-def _check(x, name, dtype, shape, device):
-    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape \
-            or not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError(
-            f"{name} must be a contiguous, 16-byte aligned {dtype} {shape} "
-            f"tensor on {device}, got {x.dtype} {tuple(x.shape)} on "
-            f"{x.device}")
+# The kernels read every tensor in 16-byte vectors.
+ALIGN = 16
 
 
 def _launch_conv(xl, mask_by, w, b, relu: bool, L: StageLayout,
-                 plan: ConvPlan = None):
+                 plan: ConvPlan = None, counter=None):
     """Launch the conv kernel (the dx form with mask_by) under `plan`
     (default: conv_plan's; a tuning script may pass its own)."""
     if not xl.is_cuda:
@@ -464,54 +455,39 @@ def _launch_conv(xl, mask_by, w, b, relu: bool, L: StageLayout,
         raise ValueError(f"conv weights {tuple(w.shape)} do not fit a "
                          f"layout of {ci} channels (multiples of "
                          f"{CHANNEL_ALIGN})")
-    _check(xl, "layout", torch.bfloat16, (L.rows, ci), dev)
-    _check(w, "weights", torch.bfloat16, (9 * ci, co), dev)
+    check = cuda_build.check_tensor
+    check(xl, "layout", torch.bfloat16, (L.rows, ci), dev, ALIGN)
+    check(w, "weights", torch.bfloat16, (9 * ci, co), dev, ALIGN)
     if mask_by is not None:
-        _check(mask_by, "mask", torch.bfloat16, (L.rows, ci), dev)
+        check(mask_by, "mask", torch.bfloat16, (L.rows, ci), dev, ALIGN)
     if b is not None:
-        _check(b, "bias", torch.float32, (co,), dev)
+        check(b, "bias", torch.float32, (co,), dev, ALIGN)
     if plan is None:
         plan = conv_plan(L, ci, co)
-    lib = cuda_build.load("conv3x3", _CONV_SIGNATURES)
     y = torch.empty(L.rows, co, dtype=torch.bfloat16, device=dev)
     ws = torch.empty(plan.workspace, dtype=torch.float32, device=dev) \
         if plan.split_k > 1 else None
-    rc = lib.conv3x3_layout(
-        xl.data_ptr(), None if mask_by is None else mask_by.data_ptr(),
-        w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
-        None if ws is None else ws.data_ptr(),
-        L.rows, ci, co, L.w, L.m_blk, L.n_valid, int(relu), plan.kc,
-        plan.bn, plan.split_k, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"conv3x3_layout launch failed: "
-                           f"{lib.conv3x3_error_string(rc).decode()} ({rc})")
+    ptr = cuda_build.ptr
+    CONV_LIBRARY.launch(
+        "conv3x3_layout", ptr(xl), ptr(mask_by), ptr(w), ptr(b), ptr(y),
+        ptr(ws), L.rows, ci, co, L.w, L.m_blk, L.n_valid, int(relu), plan.kc,
+        plan.bn, plan.split_k, device=dev, counter=counter)
     return y
 
 
+@cuda_build.counted
 def conv3x3_layout_cuda(xl, w, b, relu: bool, L: StageLayout):
     """Launch the conv kernel: xl [L.rows, Ci] bf16, w [9*Ci, Co] bf16,
     b [Co] fp32 or None (zero) -> [L.rows, Co] bf16."""
-    y = _launch_conv(xl, None, w, b, relu, L)
-    conv3x3_layout_cuda.launches += 1
-    return y
+    return _launch_conv(xl, None, w, b, relu, L, counter=conv3x3_layout_cuda)
 
 
-conv3x3_layout_cuda.launches = 0
-
-
+@cuda_build.counted
 def conv3x3_layout_dx_cuda(gl, yl, w_t, L: StageLayout):
     """Launch the dx kernel: gl, yl [L.rows, Co] bf16 (yl the layer's
     output, whose > 0 masks gl), w_t [9*Co, Ci] -> [L.rows, Ci] bf16."""
-    y = _launch_conv(gl, yl, w_t, None, False, L)
-    conv3x3_layout_dx_cuda.launches += 1
-    return y
-
-
-conv3x3_layout_dx_cuda.launches = 0
-
-
-def _head_library():
-    return cuda_build.load("lpips_head", _HEAD_SIGNATURES)
+    return _launch_conv(gl, yl, w_t, None, False, L,
+                        counter=conv3x3_layout_dx_cuda)
 
 
 # The head forward's workspace on each device: its CTAs' ticket counter
@@ -519,12 +495,12 @@ def _head_library():
 _head_workspaces: dict = {}
 
 
-def _head_workspace(lib, dev):
+def _head_workspace(dev):
     ws = _head_workspaces.get(dev)
     if ws is None:
         ws = _head_workspaces[dev] = torch.zeros(
-            lib.lpips_head_workspace_words(SM_COUNT), dtype=torch.int32,
-            device=dev)
+            HEAD_LIBRARY.get().lpips_head_workspace_words(SM_COUNT),
+            dtype=torch.int32, device=dev)
     return ws
 
 
@@ -536,65 +512,50 @@ def _check_head(a, b, lin, L):
                          f"8 up to {HEAD_MAX_C}, got {tuple(a.shape)}")
     if a.dtype not in HEAD_DTYPES:
         raise ValueError(f"head features must be bf16 or fp32, got {a.dtype}")
-    _check(a, "a", a.dtype, tuple(a.shape), a.device)
-    _check(b, "b", a.dtype, tuple(a.shape), a.device)
-    _check(lin, "lin_eff", torch.float32, (a.shape[1],), a.device)
+    check = cuda_build.check_tensor
+    check(a, "a", a.dtype, a.shape, a.device, ALIGN)
+    check(b, "b", a.dtype, a.shape, a.device, ALIGN)
+    check(lin, "lin_eff", torch.float32, (a.shape[1],), a.device, ALIGN)
     return head_span(a.shape[0], L)
 
 
-def _head_raise(lib, rc, what):
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           f"{lib.lpips_head_error_string(rc).decode()} ({rc})")
-
-
+@cuda_build.counted
 def head_fwd_cuda(a, b, lin_eff, L: StageLayout = None):
     """Launch the head forward kernel over the rows of head_span(rows, L):
     a, b [rows, C] bf16 (or both fp32: the kernel's fp32 form), lin_eff
     [C] fp32 -> fp32 scalar, summed on the card in a fixed order (no
     float atomics) by the same launch."""
     lo, hi = _check_head(a, b, lin_eff, L)
-    lib = _head_library()
     rows, c = a.shape
     out = torch.empty((), dtype=torch.float32, device=a.device)
-    fwd = lib.lpips_head_fwd if a.dtype == torch.bfloat16 \
-        else lib.lpips_head_fwd_f32
-    rc = fwd(a.data_ptr(), b.data_ptr(), lin_eff.data_ptr(),
-                            rows, c, lo, hi, SM_COUNT,
-                            _head_workspace(lib, a.device).data_ptr(),
-                            out.data_ptr(),
-                            torch.cuda.current_stream(a.device).cuda_stream)
-    _head_raise(lib, rc, "lpips_head_fwd")
-    head_fwd_cuda.launches += 1
+    ptr = cuda_build.ptr
+    HEAD_LIBRARY.launch(
+        "lpips_head_fwd" if a.dtype == torch.bfloat16
+        else "lpips_head_fwd_f32", ptr(a), ptr(b), ptr(lin_eff), rows, c, lo,
+        hi, SM_COUNT, ptr(_head_workspace(a.device)), ptr(out),
+        device=a.device, counter=head_fwd_cuda)
     return out
 
 
-head_fwd_cuda.launches = 0
-
-
+@cuda_build.counted
 def head_bwd_cuda(a, b, lin_eff, ct, L: StageLayout = None,
                   need_db: bool = True):
     """Launch the head backward kernel: (da, db) [rows, C] in the features'
     type for the fp32 scalar cotangent ct (read on the card), zero outside
     head_span(rows, L); db is None, and not computed, unless need_db."""
     lo, hi = _check_head(a, b, lin_eff, L)
-    _check(ct, "cotangent", torch.float32, (), a.device)
-    lib = _head_library()
+    cuda_build.check_tensor(ct, "cotangent", torch.float32, (), a.device,
+                            ALIGN)
     rows, c = a.shape
     da = torch.empty_like(a)
     db = torch.empty_like(b) if need_db else None
-    bwd = lib.lpips_head_bwd if a.dtype == torch.bfloat16 \
-        else lib.lpips_head_bwd_f32
-    rc = bwd(a.data_ptr(), b.data_ptr(), lin_eff.data_ptr(),
-                            ct.data_ptr(), rows, c, lo, hi, SM_COUNT,
-                            da.data_ptr(), None if db is None else db.data_ptr(),
-                            torch.cuda.current_stream(a.device).cuda_stream)
-    _head_raise(lib, rc, "lpips_head_bwd")
-    head_bwd_cuda.launches += 1
+    ptr = cuda_build.ptr
+    HEAD_LIBRARY.launch(
+        "lpips_head_bwd" if a.dtype == torch.bfloat16
+        else "lpips_head_bwd_f32", ptr(a), ptr(b), ptr(lin_eff), ptr(ct),
+        rows, c, lo, hi, SM_COUNT, ptr(da), ptr(db), device=a.device,
+        counter=head_bwd_cuda)
     return da, db
-
-
-head_bwd_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -690,16 +651,14 @@ def _image_layout(x, p: ConvWeights) -> StageLayout:
     return StageLayout(h, w, max(p.ci, p.co, 128))
 
 
+@cuda_build.counted
 def conv3x3_image_cuda(x, p: ConvWeights, relu: bool):
     """Launch the conv kernel on the layout of one [H, W, Ci] CUDA image:
     -> [H, W, Co] bf16, padding channels cut."""
     L = _image_layout(x, p)
-    y = _launch_conv(build_layout(x, L), None, p.w, p.b, relu, L)
-    conv3x3_image_cuda.launches += 1
+    y = _launch_conv(build_layout(x, L), None, p.w, p.b, relu, L,
+                     counter=conv3x3_image_cuda)
     return unlayout(y, L)[..., : p.n_out]
-
-
-conv3x3_image_cuda.launches = 0
 
 
 def conv3x3_raw(x, p: ConvWeights, relu: bool):

@@ -144,27 +144,15 @@ def knn_plan(n: int, m: int, sm_count: int = SM_COUNT) -> KnnPlan:
 
 
 _P, _I32 = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
+LIBRARY = cuda_build.Kernels("knn", {
     "knn_nearest": ([_P, _I32, _P, _P, _I32, _I32, _I32, _P, _P, _P, _P,
                      _P], ctypes.c_int),
     "knn_config": ([_P], None),
     "knn_occupancy": ([_P], ctypes.c_int),
-    "knn_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
+})
 
 
-def knn_library():
-    return cuda_build.load("knn", _SIGNATURES)
-
-
-def _check_points(x, name, dev):
-    if x.device != dev or x.dtype != torch.float32 or x.dim() != 2 \
-            or x.shape[1] != 3 or not x.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous float32 [rows, 3] "
-                         f"tensor on {dev}, got {x.dtype} {tuple(x.shape)} "
-                         f"on {x.device}")
-
-
+@cuda_build.counted
 def nearest_neighbor_cuda(pt1: torch.Tensor, pt2: torch.Tensor,
                           pt2_valid: torch.Tensor | None = None,
                           plan: KnnPlan | None = None):
@@ -174,16 +162,11 @@ def nearest_neighbor_cuda(pt1: torch.Tensor, pt2: torch.Tensor,
     dev = pt1.device
     if not pt1.is_cuda:
         raise ValueError("the CUDA nearest neighbour needs CUDA tensors")
-    _check_points(pt1, "pt1", dev)
-    _check_points(pt2, "pt2", dev)
     n, m = pt1.shape[0], pt2.shape[0]
-    if pt2_valid is not None and (
-            pt2_valid.device != dev or pt2_valid.dtype != torch.bool
-            or tuple(pt2_valid.shape) != (m,)
-            or not pt2_valid.is_contiguous()):
-        raise ValueError(f"pt2_valid must be a contiguous bool [{m}] tensor "
-                         f"on {dev}, got {pt2_valid.dtype} "
-                         f"{tuple(pt2_valid.shape)} on {pt2_valid.device}")
+    cuda_build.check_tensor(pt1, "pt1", torch.float32, (n, 3), dev)
+    cuda_build.check_tensor(pt2, "pt2", torch.float32, (m, 3), dev)
+    if pt2_valid is not None:
+        cuda_build.check_tensor(pt2_valid, "pt2_valid", torch.bool, (m,), dev)
     if m == 0:
         raise ValueError("nearest_neighbor needs at least one reference point")
     dist = torch.empty(n, dtype=torch.float32, device=dev)
@@ -201,21 +184,12 @@ def nearest_neighbor_cuda(pt1: torch.Tensor, pt2: torch.Tensor,
     if plan.slices > 1:
         part_d = torch.empty(plan.slices, n, dtype=torch.float32, device=dev)
         part_i = torch.empty(plan.slices, n, dtype=torch.int32, device=dev)
-    lib = knn_library()
-    rc = lib.knn_nearest(
-        pt1.data_ptr(), n, pt2.data_ptr(),
-        None if pt2_valid is None else pt2_valid.data_ptr(), m, plan.slices,
-        plan.slice_len, None if part_d is None else part_d.data_ptr(),
-        None if part_i is None else part_i.data_ptr(), dist.data_ptr(),
-        idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"knn_nearest launch failed: "
-                           f"{lib.knn_error_string(rc).decode()} ({rc})")
-    nearest_neighbor_cuda.launches += 1
+    ptr = cuda_build.ptr
+    LIBRARY.launch(
+        "knn_nearest", ptr(pt1), n, ptr(pt2), ptr(pt2_valid), m, plan.slices,
+        plan.slice_len, ptr(part_d), ptr(part_i), ptr(dist), ptr(idx),
+        device=dev, counter=nearest_neighbor_cuda)
     return dist, idx
-
-
-nearest_neighbor_cuda.launches = 0
 
 
 def knn_indices(query: torch.Tensor, ref: torch.Tensor, k: int,

@@ -6,28 +6,19 @@ flow to means, covariances, colours and opacities. The densification
 "viewspace gradient" is harvested functionally: pass a zeros [N, 2]
 `means2d_offset` that requires grad and differentiate the loss w.r.t. it.
 
-Backends:
+The stages: projection (`project`) -> binning (binning.py) -> the pair
+payload (payload.py) -> the composite of the tiles (`composite`) -> the
+image (composite.tiles_to_image). RasterConfig.backend names the path;
+the first stage resolves it against its tensors' device
+(`resolve_raster_backend`) and the later stages take what it resolved:
   * "cuda":   the projection kernels (projection.project_gaussians_cuda:
               SH colours and the EWA projection, one launch each way),
               binned tiles, the hand-written CUDA composite kernels;
   * "torch":  binned tiles, the kernels' plain PyTorch versions;
   * "oracle": dense per-pixel compositing (small scenes, ground truth).
 
-Sharded over the gaussians (`gauss_group`, a row of the rank mesh,
-parallel/mesh.py): each rank projects its block of the gaussians and the
-projected fields are gathered, so that binning sees the whole cloud; the
-composite is then split over the group's ranks by
-RasterConfig.tile_shard_mode, as the JAX package splits it over its
-gauss mesh axis:
-  * "owner": each rank bins and composites the tiles it is dealt by
-    binning.tile_owner_tables, then the tiles are gathered and put back
-    in grid order; bit for bit the unsharded image;
-  * "pairslice": each rank composites an equal slice of the depth-ordered
-    pair array over the whole grid, and the per-tile partials are
-    composed over the ranks in order, the 1e-4 stop applied per part;
-  * "hybrid": owner's tiles, except the hot_split_tiles deepest, whose
-    pairs are split by depth range over the ranks and composed as in
-    pairslice.
+The render sharded over a gauss group of ranks composes the same stages
+(parallel/raster.py).
 """
 from __future__ import annotations
 
@@ -37,11 +28,7 @@ import torch
 
 from manus_tpu_torch.ops.rasterizer import composite as composite_mod
 from manus_tpu_torch.ops.rasterizer import oracle as oracle_mod
-from manus_tpu_torch.ops.rasterizer.binning import (
-    TileBins,
-    bin_gaussians,
-    tile_owner_tables,
-)
+from manus_tpu_torch.ops.rasterizer.binning import TileBins, bin_gaussians
 from manus_tpu_torch.ops.rasterizer.payload import build_payload
 from manus_tpu_torch.ops.rasterizer.projection import (
     TILE,
@@ -49,17 +36,37 @@ from manus_tpu_torch.ops.rasterizer.projection import (
     project_gaussians,
     project_gaussians_cuda,
 )
-from manus_tpu_torch.parallel.collectives import (
-    all_gather_stack,
-    all_gather_tiled,
-    group_rank,
-)
 from manus_tpu_torch.utils import sh as sh_mod
 from manus_tpu_torch.utils import trace
 from manus_tpu_torch.utils.camera import Camera
 
-BACKENDS = ("cuda", "torch", "oracle")
-TILE_SHARD_MODES = ("owner", "pairslice", "hybrid")
+# The port's names, and the JAX package's, which a config snapshot of
+# either package may hold.
+PORT_BACKENDS = ("cuda", "torch", "oracle")
+JAX_BACKENDS = ("auto", "pallas", "xla")
+
+
+def resolve_raster_backend(name: str, device) -> str:
+    """The port's raster backend for a config's `raster.backend` on
+    `device`.
+
+    On a CUDA device "auto", "pallas" and "cuda" are the kernels; "xla",
+    the JAX package's plain path, raises rather than run the plain
+    version on the card unnoticed ("torch" and "oracle" name it
+    explicitly). On the CPU every kernel name means its plain version,
+    "torch", as the kernel wrappers do for CPU tensors.
+    """
+    if name not in PORT_BACKENDS + JAX_BACKENDS:
+        raise ValueError(f"unknown raster.backend {name!r}; one of "
+                         f"{PORT_BACKENDS + JAX_BACKENDS}")
+    if torch.device(device).type == "cuda":
+        if name == "xla":
+            raise ValueError(
+                "raster.backend='xla' names the JAX package's plain path; "
+                "on a CUDA device choose 'cuda' (or 'auto'/'pallas', the "
+                "kernels), or 'torch'/'oracle' for a plain version")
+        return "cuda" if name in ("auto", "pallas") else name
+    return "oracle" if name == "oracle" else "torch"
 
 
 class RasterConfig(NamedTuple):
@@ -74,7 +81,8 @@ class RasterConfig(NamedTuple):
     lane_align: int = 128
     pair_budget_factor: int = 8  # pair buffer cap, x N (0 = off)
     multi_frac: float = 1.0  # multi-tile capacity, x N (binning.py)
-    tile_shard_mode: str = "owner"  # the composite's split over gauss ranks
+    # the composite's split over gauss ranks (parallel/raster.py)
+    tile_shard_mode: str = "owner"
     hot_split_tiles: int = 8  # "hybrid": the deepest tiles split by depth
 
 
@@ -146,65 +154,70 @@ def render_gaussians(
     active: Optional[torch.Tensor] = None,
     means2d_offset: Optional[torch.Tensor] = None,
     config: RasterConfig = RasterConfig(),
-    gauss_group=None,
-    gauss_axis_size: int = 1,
 ) -> RenderOutput:
-    """Differentiable 3D Gaussian splat render; see the module docstring.
+    """Differentiable 3D Gaussian splat render; see the module docstring."""
+    with trace.span("raster.project"):
+        proj, colors, opacity, backend = project(
+            posed_means, posed_cov, cano_means, cano_features, cano_opacity,
+            camera, colors_precomp, sh_degree, tf, active, config)
+        if means2d_offset is not None:
+            proj = proj._replace(means2d=proj.means2d + means2d_offset)
+    return rasterize(proj, colors, opacity, bg_color, camera, config,
+                     backend)
 
-    With gauss_group (gauss_axis_size ranks, each holding its block of the
-    gaussians in the [N, ...] inputs, means2d_offset excepted, which is
-    for the whole cloud) the outputs are for the whole cloud and image on
-    every rank of the group.
-    """
-    if config.tile_shard_mode not in TILE_SHARD_MODES:
-        raise ValueError(f"unknown tile_shard_mode {config.tile_shard_mode!r};"
-                         f" one of {TILE_SHARD_MODES}")
-    if config.backend not in BACKENDS:
-        raise ValueError(f"unknown backend {config.backend!r}; one of {BACKENDS}")
-    if config.backend == "cuda" and not posed_means.is_cuda:
-        raise ValueError("backend='cuda' needs CUDA tensors; "
-                         "use backend='torch' on the CPU")
+
+def project(posed_means, posed_cov, cano_means, cano_features, cano_opacity,
+            camera: Camera, colors_precomp, sh_degree: int, tf, active,
+            config: RasterConfig):
+    """The projection stage: the ProjectedGaussians, the colours [N, 3]
+    (colors_precomp, or from the SH), the opacities [N] and the backend
+    config.backend resolves to on the tensors' device."""
+    backend = resolve_raster_backend(config.backend, posed_means.device)
     n = posed_means.shape[0]
     opacity = cano_opacity.reshape(n)
     precomp = colors_precomp is not None
-    with trace.span("raster.project"):
-        if config.backend == "cuda":
-            proj, colors = project_gaussians_cuda(
-                posed_means, posed_cov, camera, active=active,
-                cano_means=cano_means,
-                features=None if precomp else cano_features,
-                sh_degree=-1 if precomp else sh_degree, tf=tf)
-            trace.count("raster.project_kernel", 1)
-        else:
-            colors = None if precomp else calculate_colors_from_sh(
-                posed_means, cano_features, cano_means, camera, sh_degree,
-                tf)
-            proj = project_gaussians(posed_means, posed_cov, camera,
-                                     active=active)
-        if precomp:
-            colors = colors_precomp
-        if gauss_group is not None:
-            proj, colors, opacity = _gather_fields(proj, colors, opacity,
-                                                   gauss_group)
-        if means2d_offset is not None:
-            proj = proj._replace(means2d=proj.means2d + means2d_offset)
+    if backend == "cuda":
+        proj, colors = project_gaussians_cuda(
+            posed_means, posed_cov, camera, active=active,
+            cano_means=cano_means,
+            features=None if precomp else cano_features,
+            sh_degree=-1 if precomp else sh_degree, tf=tf)
+    else:
+        colors = None if precomp else calculate_colors_from_sh(
+            posed_means, cano_features, cano_means, camera, sh_degree, tf)
+        proj = project_gaussians(posed_means, posed_cov, camera,
+                                 active=active)
+    return proj, colors_precomp if precomp else colors, opacity, backend
 
+
+def rasterize(proj: ProjectedGaussians, colors, opacity, bg_color,
+              camera: Camera, config: RasterConfig,
+              backend: str) -> RenderOutput:
+    """The render of projected gaussians on the resolved `backend`: bin,
+    build the payload, composite and assemble the image over `bg_color`
+    (or the dense oracle); records the bins' pair counters."""
     w, h = camera.width, camera.height
-    bg = torch.as_tensor(bg_color, dtype=posed_means.dtype,
-                         device=posed_means.device)
-    zero = torch.zeros((), dtype=torch.int32, device=posed_means.device)
-    if config.backend == "oracle":
+    dev = proj.depth.device
+    bg = torch.as_tensor(bg_color, dtype=proj.depth.dtype, device=dev)
+    if backend == "oracle":
         row_chunk = 16 if h % 16 == 0 else (8 if h % 8 == 0 else 1)
         with trace.span("raster.composite"):
             img, t_final = oracle_mod.render_oracle(
                 proj, colors, opacity, bg, w, h, row_chunk=row_chunk)
-        overflow, overflow_far = zero, zero
+        overflow = overflow_far = torch.zeros((), dtype=torch.int32,
+                                              device=dev)
     else:
-        img, t_final, bins = _composite(
-            proj, colors, opacity, bg, w, h, config, gauss_group,
-            gauss_axis_size)
+        ntx, nty = (w + TILE - 1) // TILE, (h + TILE - 1) // TILE
+        with trace.span("raster.bin"):
+            bins = bin_gaussians(proj, ntx, nty, **bin_options(config))
+            count_pairs(bins)
+        with trace.span("raster.composite"):
+            pay = build_payload(proj, colors, opacity, bins)
+            rgb, t = composite(pay, bins.tile_offsets, bins.tile_counts, ntx,
+                               nty, config, backend)
+            img, t_final = composite_mod.tiles_to_image(rgb, t, bg, ntx, nty,
+                                                        w, h)
         overflow, overflow_far = bins.overflow_count, bins.overflow_far
-
     return RenderOutput(
         render=img,
         radii=proj.radius,
@@ -215,153 +228,31 @@ def render_gaussians(
     )
 
 
-def _gather_fields(proj: ProjectedGaussians, colors, opacity, group):
-    """The projected fields, colours and opacity of the whole cloud from
-    each rank's block: one differentiable gather of the float fields,
-    one of the integer ones."""
-    floats = torch.cat([proj.means2d, proj.conic, proj.depth[:, None],
-                        colors, opacity[:, None]], 1)
-    ints = torch.cat([proj.radius[:, None], proj.tile_rect,
-                      proj.visible[:, None].to(torch.int32)], 1)
-    f = all_gather_tiled(floats, group)
-    i = all_gather_tiled(ints, group)
-    proj = ProjectedGaussians(
-        means2d=f[:, 0:2], conic=f[:, 2:5], depth=f[:, 5], radius=i[:, 0],
-        tile_rect=i[:, 1:5], visible=i[:, 5].bool())
-    return proj, f[:, 6:9], f[:, 9]
+def bin_options(config: RasterConfig) -> dict:
+    """bin_gaussians' settings from the config."""
+    return dict(tg_max=config.tg_max, lane_align=config.lane_align,
+                pair_budget_factor=config.pair_budget_factor,
+                max_pairs_per_tile=config.max_pairs_per_tile,
+                multi_frac=config.multi_frac)
 
 
-def _over_compose(rgb_parts, t_parts):
-    """Ordered over-compose of the ranks' partial segments ([G, T, 3, 256],
-    [G, T, 256]): rank order is depth order within every tile, and
-    (rgb, T) composition is associative. The 1e-4 stop applies per part:
-    a later part is dropped once the running T has crossed it."""
-    rgb_c, t_c = rgb_parts[0], t_parts[0]
-    for r2, t2 in zip(rgb_parts[1:], t_parts[1:]):
-        go = t_c > composite_mod.T_EPS
-        rgb_c = rgb_c + torch.where(go[:, None, :], t_c[:, None, :] * r2, 0.0)
-        t_c = torch.where(go, t_c * t2, t_c)
-    return rgb_c, t_c
-
-
-def _tiles(pay, offs, cnts, ntx, nty, config, tids=None):
-    if config.backend == "cuda":
-        return composite_mod.composite_tiles(pay, offs, cnts, ntx, nty,
-                                             tile_ids=tids)
-    return composite_mod.composite_tiles_torch(pay, offs, cnts, ntx, nty,
-                                               chunk=config.chunk,
-                                               tile_ids=tids)
-
-
-def _gather_tiles(rgb, t, group, stack: bool):
-    """A rank's tile outputs gathered over the group in one collective:
-    tiled ([G * T, ...]) or stacked ([G, T, ...])."""
-    both = torch.cat([rgb, t[:, None]], 1)
-    out = (all_gather_stack if stack else all_gather_tiled)(both, group)
-    return out[..., :3, :], out[..., 3, :]
-
-
-def _composite(proj, colors, opacity, bg, w: int, h: int,
-               config: RasterConfig, group, n: int):
-    """Bin, build the payload and composite, split over the gauss group's
-    n ranks as config.tile_shard_mode says. Returns the image [H, W, 3]
-    over `bg`, its final transmittance [H, W] and the bins; records the
-    bins' pair counters (utils/trace.py)."""
-    ntx, nty = (w + TILE - 1) // TILE, (h + TILE - 1) // TILE
-    num_tiles = ntx * nty
-    split = group is not None and n > 1
-    mode = config.tile_shard_mode
-    pairslice = split and mode == "pairslice"
-    dealt = split and num_tiles % n == 0
-    hybrid = dealt and mode == "hybrid" and config.hot_split_tiles > 0
-    # hybrid with no hot tiles is owner, as in the JAX package
-    owner = dealt and not pairslice and not hybrid
-    col = group_rank(group)
-    with trace.span("raster.bin"):
-        bins = _bin(proj, ntx, nty, config, col, n, owner, pairslice, group)
-    with trace.span("raster.composite"):
-        rgb, t = _composite_bins(proj, colors, opacity, bins, ntx, nty,
-                                 config, group, n, col,
-                                 (owner, pairslice, hybrid))
-        img, t_final = composite_mod.tiles_to_image(rgb, t, bg, ntx, nty,
-                                                    w, h)
-    return img, t_final, bins
-
-
-def _bin(proj, ntx: int, nty: int, config: RasterConfig, col: int, n: int,
-         owner: bool, pairslice: bool, group):
-    """The bins this rank composites: its owned tiles', or its slice of
-    the pair array."""
-    bins = bin_gaussians(
-        proj, ntx, nty, config.tg_max, lane_align=config.lane_align,
-        pair_budget_factor=config.pair_budget_factor,
-        max_pairs_per_tile=config.max_pairs_per_tile,
-        multi_frac=config.multi_frac, owner=col if owner else 0,
-        num_owners=n if owner else 1, group=group if owner else None)
+def count_pairs(bins: TileBins):
+    """A view's pair counters (utils/trace.py)."""
     trace.count("raster.pairs_emitted", bins.tile_counts,
                 bins.overflow_count)
     trace.count("raster.pairs_kept", bins.tile_counts)
     trace.count("raster.pairs_dropped", bins.overflow_count)
-    if pairslice:
-        # an equal slice of the pair array a rank, its width rounded up to
-        # lane_align so that the slices fall where JAX's do
-        p = bins.pair_src.shape[0]
-        la = max(config.lane_align, 1)
-        s = -(-(-(-p // n)) // la) * la
-        src = torch.cat([bins.pair_src, bins.pair_src.new_full(
-            (s * n - p,), -1)])
-        start = col * s
-        off = torch.clamp(bins.tile_offsets - start, 0, s)
-        end = torch.clamp(bins.tile_offsets + bins.tile_counts - start, 0, s)
-        bins = bins._replace(pair_src=src[start:start + s], tile_offsets=off,
-                             tile_counts=end - off)
-    return bins
 
 
-def _composite_bins(proj, colors, opacity, bins: TileBins, ntx: int,
-                    nty: int, config: RasterConfig, group, n: int, col: int,
-                    modes):
-    """The payload and the composite of the bins, put together over the
-    group's ranks as `modes` (owner, pairslice, hybrid) say: the full
-    grid's rgb [T, 3, 256] and T_final [T, 256]."""
-    owner, pairslice, hybrid = modes
-    num_tiles = ntx * nty
-    dev = proj.depth.device
-    pay = build_payload(proj, colors, opacity, bins)
-    offs, cnts, tids = bins.tile_offsets, bins.tile_counts, None
-    if owner or hybrid:
-        _, _, owned_np, perm_np = tile_owner_tables(ntx, nty, n)
-        owned = torch.as_tensor(owned_np[col], device=dev)
-        perm = torch.as_tensor(perm_np, device=dev).long()
-        tids = owned
-    if hybrid:
-        # the k deepest tiles (ties: the lower id first, as top_k) leave
-        # their owner's slot; each rank composites an equal depth range
-        k = min(config.hot_split_tiles, num_tiles)
-        hot_ids = torch.argsort(-bins.tile_counts, stable=True)[:k]
-        hot_cnt = bins.tile_counts[hot_ids]
-        hot_off = bins.tile_offsets[hot_ids]
-        share = -(-hot_cnt // n)
-        sub_off = hot_off + torch.minimum(col * share, hot_cnt)
-        sub_end = hot_off + torch.minimum((col + 1) * share, hot_cnt)
-        own_cnt = torch.where(torch.isin(owned, hot_ids), 0,
-                              bins.tile_counts[owned.long()])
-        offs = torch.cat([bins.tile_offsets[owned.long()], sub_off])
-        cnts = torch.cat([own_cnt, sub_end - sub_off]).to(torch.int32)
-        tids = torch.cat([owned, hot_ids.to(torch.int32)])
-    rgb, t = _tiles(pay, offs.contiguous(), cnts.contiguous(), ntx, nty,
-                    config, tids)
-    if pairslice:
-        rgb, t = _over_compose(*_gather_tiles(rgb, t, group, stack=True))
-    elif hybrid:
-        t_loc = owned.shape[0]
-        own_rgb, own_t = _gather_tiles(rgb[:t_loc], t[:t_loc], group,
-                                       stack=False)
-        hot_rgb, hot_t = _over_compose(*_gather_tiles(
-            rgb[t_loc:], t[t_loc:], group, stack=True))
-        rgb = own_rgb[perm].index_copy(0, hot_ids, hot_rgb)
-        t = own_t[perm].index_copy(0, hot_ids, hot_t)
-    elif owner:
-        rgb, t = _gather_tiles(rgb, t, group, stack=False)
-        rgb, t = rgb[perm], t[perm]
-    return rgb, t
+def composite(pay, offsets, counts, ntx: int, nty: int, config: RasterConfig,
+              backend: str, tile_ids=None):
+    """The composite of the payload's tile segments on the resolved
+    `backend`: rgb [T, 3, 256] and T_final [T, 256] of the grid's tiles,
+    or of the tile slots `tile_ids` names (composite.py)."""
+    offsets, counts = offsets.contiguous(), counts.contiguous()
+    if backend == "cuda":
+        return composite_mod.composite_tiles(pay, offsets, counts, ntx, nty,
+                                             tile_ids=tile_ids)
+    return composite_mod.composite_tiles_torch(pay, offsets, counts, ntx, nty,
+                                               chunk=config.chunk,
+                                               tile_ids=tile_ids)

@@ -24,7 +24,7 @@ package's single-device `bin_gaussians`, drop rules included:
      (which drops the farthest pairs; `overflow_far` counts those).
 
 With `owner` and `num_owners` > 1 (owner-mode tile sharding,
-ops/rasterizer/api.py) a rank bins only the tiles it owns under
+parallel/raster.py) a rank bins only the tiles it owns under
 `tile_owner_tables`: pairs of other tiles sort to the tail, the tile
 keys are the owned tiles' local slots, the budget is the owner's share,
 and the budget and cap drops are summed over the owners' `group`.

@@ -19,7 +19,7 @@ back (numerics in csrc/composite.cu and oracle.py).
 Every function takes the [T] tile slots' `tile_ids` (global tile ids, the
 JAX kernels' `tile_ids=`): slot t composites tile tile_ids[t] of the
 ntx x nty grid, for a rank that composites a subset of the grid (owner
-and hybrid tile sharding, ops/rasterizer/api.py). None means the full
+and hybrid tile sharding, parallel/raster.py). None means the full
 grid, slot t = tile t.
 
 Outputs: rgb [T, 3, 256] and t_final [T, 256], in slot order.
@@ -61,7 +61,7 @@ N_PX = TILE * TILE
 
 _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_float)
-_SIGNATURES = {
+LIBRARY = cuda_build.Kernels("composite", {
     "composite_chunk": ([], ctypes.c_int),
     "composite_occupancy": ([_P], ctypes.c_int),
     "composite_fwd": (
@@ -70,32 +70,20 @@ _SIGNATURES = {
     "composite_bwd": (
         [_P, _I64, _P, _P, _P, _I32, _I32, _P, _P, _I32, _P, _P, _P, _P, _P,
          _P, _P, _P], ctypes.c_int),
-    "composite_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
-
-
-def _library():
-    return cuda_build.load("composite", _SIGNATURES)
+})
 
 
 def chunk_size() -> int:
     """Pairs per (tile, chunk) item of the CUDA kernels."""
-    return _library().composite_chunk()
+    return LIBRARY.get().composite_chunk()
 
 
 def kernel_occupancy() -> dict:
     """CTAs an SM can hold of each composite kernel, by the CUDA runtime's
     occupancy calculator."""
-    lib = _library()
     n = (ctypes.c_int * 3)()
-    _check_launch(lib, lib.composite_occupancy(n), "composite_occupancy")
+    LIBRARY.check(LIBRARY.get().composite_occupancy(n), "composite_occupancy")
     return dict(zip(("chunk_pass", "rewalk", "bwd"), n))
-
-
-def _check_launch(lib, rc: int, what: str):
-    if rc != 0:
-        msg = lib.composite_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
 
 
 def num_slots(ntx: int, nty: int, tile_ids) -> int:
@@ -103,37 +91,32 @@ def num_slots(ntx: int, nty: int, tile_ids) -> int:
     return ntx * nty if tile_ids is None else tile_ids.shape[0]
 
 
-def _check_inputs(payload, offsets, counts, ntx: int, nty: int, tile_ids):
+def _slots(payload, offsets, counts, ntx: int, nty: int, tile_ids) -> int:
+    """The number of tile slots of a launch whose inputs the kernels take,
+    or ValueError."""
     if not payload.is_cuda:
         raise ValueError("the CUDA composite needs a CUDA payload")
-    if payload.dtype != torch.float32 or payload.dim() != 2 \
-            or payload.shape[0] != NUM_FIELDS or not payload.is_contiguous():
-        raise ValueError(
-            f"payload must be a contiguous float32 [{NUM_FIELDS}, P] tensor, "
-            f"got {payload.dtype} {tuple(payload.shape)}")
+    dev = payload.device
+    cuda_build.check_tensor(payload, "payload", torch.float32,
+                            (NUM_FIELDS, None), dev)
     t = num_slots(ntx, nty, tile_ids)
-    named = [("tile_offsets", offsets), ("tile_counts", counts)]
+    cuda_build.check_tensor(offsets, "tile_offsets", torch.int32, (t,), dev)
+    cuda_build.check_tensor(counts, "tile_counts", torch.int32, (t,), dev)
     if tile_ids is not None:
-        named.append(("tile_ids", tile_ids))
-    for name, x in named:
-        if x.device != payload.device or x.dtype != torch.int32 \
-                or x.shape != (t,) or not x.is_contiguous():
-            raise ValueError(
-                f"{name} must be a contiguous int32 [{t}] tensor on "
-                f"{payload.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+        cuda_build.check_tensor(tile_ids, "tile_ids", torch.int32, (t,), dev)
+    return t
 
 
+@cuda_build.counted
 def composite_fwd_cuda(payload, offsets, counts, ntx: int, nty: int,
                        tile_ids=None):
     """Launch the forward (csrc/composite.cu: the plan of (tile, chunk)
     items, the chunk pass and the second walk, three device kernels, one
     count). Returns (rgb [T,3,256], t_final [T,256], log_t [T,256], n_walk
     [T,256] int32, ChunkState); the last three feed the backward."""
-    _check_inputs(payload, offsets, counts, ntx, nty, tile_ids)
-    lib = _library()
-    t = num_slots(ntx, nty, tile_ids)
+    t = _slots(payload, offsets, counts, ntx, nty, tile_ids)
     dev = payload.device
-    n_items = max_items(payload.shape[1], t, lib.composite_chunk())
+    n_items = max_items(payload.shape[1], t, chunk_size())
     rgb = torch.empty(t, 3, N_PX, dtype=torch.float32, device=dev)
     t_final = torch.empty(t, N_PX, dtype=torch.float32, device=dev)
     log_t = torch.empty(t, N_PX, dtype=torch.float32, device=dev)
@@ -144,38 +127,30 @@ def composite_fwd_cuda(payload, offsets, counts, ntx: int, nty: int,
         torch.empty(n_items, 4, N_PX, dtype=torch.float32, device=dev))
     # per item and pixel: the chunk's own log-T sum, colour and last pair
     chunk_sums = torch.empty(n_items, 5, N_PX, dtype=torch.float32, device=dev)
-    rc = lib.composite_fwd(
-        payload.data_ptr(), payload.shape[1], offsets.data_ptr(),
-        counts.data_ptr(), _ptr(tile_ids), t, ntx, rgb.data_ptr(), t_final.data_ptr(),
-        log_t.data_ptr(), n_walk.data_ptr(), state.item_start.data_ptr(),
-        state.item_tile.data_ptr(), n_items, chunk_sums.data_ptr(),
-        state.saved.data_ptr(), STOP_MARGIN,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _check_launch(lib, rc, "composite_fwd")
-    composite_fwd_cuda.launches += 1
+    ptr = cuda_build.ptr
+    LIBRARY.launch(
+        "composite_fwd", ptr(payload), payload.shape[1], ptr(offsets),
+        ptr(counts), ptr(tile_ids), t, ntx, ptr(rgb), ptr(t_final),
+        ptr(log_t), ptr(n_walk), ptr(state.item_start), ptr(state.item_tile),
+        n_items, ptr(chunk_sums), ptr(state.saved), STOP_MARGIN,
+        device=dev, counter=composite_fwd_cuda)
     composite_fwd_cuda.tile_id_launches += tile_ids is not None
     return rgb, t_final, log_t, n_walk, state
 
 
-# launches, and of those the ones over tile ids (a subset of the grid)
-composite_fwd_cuda.launches = 0
+# of the launches, the ones over tile ids (a subset of the grid)
 composite_fwd_cuda.tile_id_launches = 0
 
 
-def _ptr(x):
-    return None if x is None else x.data_ptr()
-
-
+@cuda_build.counted
 def composite_bwd_cuda(payload, offsets, counts, ntx: int, nty: int,
                        d_rgb, d_tfin, t_final, log_t, n_walk,
                        state: ChunkState, tile_ids=None):
     """Launch the backward kernel on what the forward returned. Returns
     d_payload [16, P]."""
-    _check_inputs(payload, offsets, counts, ntx, nty, tile_ids)
-    lib = _library()
-    t = num_slots(ntx, nty, tile_ids)
-    n_items = max_items(payload.shape[1], t, lib.composite_chunk())
+    t = _slots(payload, offsets, counts, ntx, nty, tile_ids)
+    dev = payload.device
+    n_items = max_items(payload.shape[1], t, chunk_size())
     for name, x, shape, dtype in (
         ("d_rgb", d_rgb, (t, 3, N_PX), torch.float32),
         ("d_tfin", d_tfin, (t, N_PX), torch.float32),
@@ -186,27 +161,19 @@ def composite_bwd_cuda(payload, offsets, counts, ntx: int, nty: int,
         ("state.item_tile", state.item_tile, (n_items,), torch.int32),
         ("state.saved", state.saved, (n_items, 4, N_PX), torch.float32),
     ):
-        if x.device != payload.device or x.dtype != dtype \
-                or x.shape != shape or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dtype} {shape} "
-                             f"tensor on {payload.device}")
+        cuda_build.check_tensor(x, name, dtype, shape, dev)
     d_payload = torch.zeros_like(payload)
-    rc = lib.composite_bwd(
-        payload.data_ptr(), payload.shape[1], offsets.data_ptr(),
-        counts.data_ptr(), _ptr(tile_ids), t, ntx,
-        state.item_start.data_ptr(),
-        state.item_tile.data_ptr(), n_items, state.saved.data_ptr(),
-        d_rgb.data_ptr(), d_tfin.data_ptr(), t_final.data_ptr(),
-        log_t.data_ptr(), n_walk.data_ptr(), d_payload.data_ptr(),
-        torch.cuda.current_stream(payload.device).cuda_stream,
-    )
-    _check_launch(lib, rc, "composite_bwd")
-    composite_bwd_cuda.launches += 1
+    ptr = cuda_build.ptr
+    LIBRARY.launch(
+        "composite_bwd", ptr(payload), payload.shape[1], ptr(offsets),
+        ptr(counts), ptr(tile_ids), t, ntx, ptr(state.item_start),
+        ptr(state.item_tile), n_items, ptr(state.saved), ptr(d_rgb),
+        ptr(d_tfin), ptr(t_final), ptr(log_t), ptr(n_walk), ptr(d_payload),
+        device=dev, counter=composite_bwd_cuda)
     composite_bwd_cuda.tile_id_launches += tile_ids is not None
     return d_payload
 
 
-composite_bwd_cuda.launches = 0
 composite_bwd_cuda.tile_id_launches = 0
 
 

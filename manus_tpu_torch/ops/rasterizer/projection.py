@@ -23,7 +23,7 @@ stays the CPU's path and the one the kernels are held to.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -168,31 +168,14 @@ _P, _I32 = ctypes.c_void_p, ctypes.c_int
 # n, k, deg, width, height; means, cov, cano, feat, tf, active; the
 # camera's six tensors
 _INPUTS = [_I32] * 5 + [_P] * 6 + [_P] * 6
-_SIGNATURES = {
+LIBRARY = cuda_build.Kernels("project", {
     # ... means2d, conic, depth, radius, rect, visible, colors; stream
     "project_forward": (_INPUTS + [_P] * 7 + [_P], ctypes.c_int),
     # ... g_means2d, g_conic, g_colors; d_means, d_cov, d_cano, d_feat,
     # d_tf; stream
     "project_backward": (_INPUTS + [_P] * 3 + [_P] * 5 + [_P],
                          ctypes.c_int),
-    "project_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
-
-
-def project_library():
-    return cuda_build.load("project", _SIGNATURES)
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _check(t, name, shape, dtype, dev):
-    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-            or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {dtype} {shape} "
-                         f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} "
-                         f"on {t.device}")
+})
 
 
 def camera_tensors(camera: Camera, dev) -> tuple:
@@ -205,28 +188,30 @@ def camera_tensors(camera: Camera, dev) -> tuple:
     out = []
     for name, shape in fields:
         t = getattr(camera, name).contiguous()
-        _check(t, f"camera.{name}", shape, torch.float32, dev)
+        cuda_build.check_tensor(t, f"camera.{name}", torch.float32, shape,
+                                dev)
         out.append(t)
     return tuple(out)
 
 
-def _check_inputs(means, cov, cam, active, cano, feat, tf, sh_degree):
+def _project_inputs(means, cov, cam, active, cano, feat, tf, sh_degree):
     """The kernels' inputs as csrc/project.cu takes them, or ValueError.
     Returns (n, coefficients a row)."""
     dev = means.device
     if not means.is_cuda:
         raise ValueError("the CUDA projection needs CUDA tensors")
     n = means.shape[0]
-    _check(means, "means", (n, 3), torch.float32, dev)
-    _check(cov, "cov", (n, 6), torch.float32, dev)
+    check = cuda_build.check_tensor
+    check(means, "means", torch.float32, (n, 3), dev)
+    check(cov, "cov", torch.float32, (n, 6), dev)
     if active is not None:
-        _check(active, "active", (n,), torch.bool, dev)
+        check(active, "active", torch.bool, (n,), dev)
     if (cano is None) != (tf is None):
         raise ValueError("cano and tf go together (an articulated model's "
                          "SH directions)")
     if tf is not None:
-        _check(cano, "cano", (n, 3), torch.float32, dev)
-        _check(tf, "tf", (n, 4, 4), torch.float32, dev)
+        check(cano, "cano", torch.float32, (n, 3), dev)
+        check(tf, "tf", torch.float32, (n, 4, 4), dev)
     if sh_degree < 0:
         if feat is not None:
             raise ValueError("features without an SH degree")
@@ -243,16 +228,11 @@ def _check_inputs(means, cov, cam, active, cano, feat, tf, sh_degree):
         raise ValueError(f"the CUDA projection takes at most "
                          f"{PROJECT_MAX_COEFFS} SH coefficients a row, got "
                          f"{k}")
-    _check(feat, "features", (n, k, 3), torch.float32, dev)
+    check(feat, "features", torch.float32, (n, k, 3), dev)
     return n, k
 
 
-def _raise_on(rc: int, what: str, lib):
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           f"{lib.project_error_string(rc).decode()} ({rc})")
-
-
+@cuda_build.counted
 def project_fwd_cuda(means, cov, cam, width: int, height: int, active=None,
                      cano=None, feat=None, tf=None, sh_degree: int = -1):
     """Launch the forward kernel: `means` [N, 3] and `cov` [N, 6] posed,
@@ -262,7 +242,7 @@ def project_fwd_cuda(means, cov, cam, width: int, height: int, active=None,
     inv(tf) against `cano` [N, 3]. Returns (means2d, conic, depth,
     radius, tile_rect, visible, colors or None), as project_gaussians and
     calculate_colors_from_sh give them. No host sync."""
-    n, k = _check_inputs(means, cov, cam, active, cano, feat, tf, sh_degree)
+    n, k = _project_inputs(means, cov, cam, active, cano, feat, tf, sh_degree)
     dev = means.device
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -274,22 +254,16 @@ def project_fwd_cuda(means, cov, cam, width: int, height: int, active=None,
     visible = torch.empty(n, dtype=torch.bool, device=dev)
     colors = torch.empty(n, 3, **f32) if sh_degree >= 0 else None
     if n:
-        lib = project_library()
-        rc = lib.project_forward(
-            n, k, sh_degree, width, height, means.data_ptr(),
-            cov.data_ptr(), _ptr(cano), _ptr(feat), _ptr(tf), _ptr(active),
-            *(t.data_ptr() for t in cam), means2d.data_ptr(),
-            conic.data_ptr(), depth.data_ptr(), radius.data_ptr(),
-            rect.data_ptr(), visible.data_ptr(), _ptr(colors),
-            torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on(rc, "project_forward", lib)
-        project_fwd_cuda.launches += 1
+        LIBRARY.launch(
+            "project_forward", n, k, sh_degree, width, height,
+            *map(cuda_build.ptr, (means, cov, cano, feat, tf, active, *cam,
+                                  means2d, conic, depth, radius, rect,
+                                  visible, colors)),
+            device=dev, counter=project_fwd_cuda)
     return means2d, conic, depth, radius, rect, visible, colors
 
 
-project_fwd_cuda.launches = 0
-
-
+@cuda_build.counted
 def project_bwd_cuda(means, cov, cam, width: int, height: int, active, cano,
                      feat, tf, sh_degree: int, g_means2d, g_conic, g_colors,
                      need=(True,) * 5):
@@ -297,7 +271,7 @@ def project_bwd_cuda(means, cov, cam, width: int, height: int, active, cano,
     gradients of means2d [N, 2], conic [N, 3] and colors [N, 3] (None for
     zero). Returns the gradients of (means, cov, cano, feat, tf), each
     None where `need` says so or the input is None. No host sync."""
-    n, k = _check_inputs(means, cov, cam, active, cano, feat, tf, sh_degree)
+    n, k = _project_inputs(means, cov, cam, active, cano, feat, tf, sh_degree)
     dev = means.device
     grads = []
     for g, name, width_ in ((g_means2d, "g_means2d", 2),
@@ -305,26 +279,19 @@ def project_bwd_cuda(means, cov, cam, width: int, height: int, active, cano,
                             (g_colors, "g_colors", 3)):
         if g is not None:
             g = g.contiguous()
-            _check(g, name, (n, width_), torch.float32, dev)
+            cuda_build.check_tensor(g, name, torch.float32, (n, width_), dev)
         grads.append(g)
     if sh_degree < 0:
         grads[2] = None
     outs = [torch.empty_like(x) if x is not None and want else None
             for x, want in zip((means, cov, cano, feat, tf), need)]
     if n and any(o is not None for o in outs):
-        lib = project_library()
-        rc = lib.project_backward(
-            n, k, sh_degree, width, height, means.data_ptr(),
-            cov.data_ptr(), _ptr(cano), _ptr(feat), _ptr(tf), _ptr(active),
-            *(t.data_ptr() for t in cam), *(_ptr(g) for g in grads),
-            *(_ptr(o) for o in outs),
-            torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on(rc, "project_backward", lib)
-        project_bwd_cuda.launches += 1
+        LIBRARY.launch(
+            "project_backward", n, k, sh_degree, width, height,
+            *map(cuda_build.ptr, (means, cov, cano, feat, tf, active, *cam,
+                                  *grads, *outs)),
+            device=dev, counter=project_bwd_cuda)
     return tuple(outs)
-
-
-project_bwd_cuda.launches = 0
 
 
 class _Project(torch.autograd.Function):

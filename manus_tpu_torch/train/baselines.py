@@ -17,7 +17,6 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from manus_tpu_torch.config import resolve_raster_backend
 from manus_tpu_torch.ops.contacts import contact_map
 from manus_tpu_torch.ops.knn import knn_self_distances
 from manus_tpu_torch.ops.rasterizer.api import RasterConfig, render_gaussians
@@ -36,8 +35,7 @@ def render_contact_images(points, colors, cameras, out_dir: str,
     {name}.png. Each point is an isotropic gaussian of opacity 0.99 whose
     scale is sqrt of the mean squared distance to its 3 nearest
     neighbours (the gaussian init's rule: splats just touch), or
-    `point_scale`. raster_config's backend is resolved for `device` (the
-    kernels on a card). Returns the paths written."""
+    `point_scale`. Returns the paths written."""
     device = resolve_device(device)
     pts = torch.as_tensor(np.asarray(points, np.float32), device=device)
     cols = torch.as_tensor(np.asarray(colors, np.float32), device=device)
@@ -52,7 +50,6 @@ def render_contact_images(points, colors, cameras, out_dir: str,
     feats = torch.zeros((n, 1, 3), dtype=torch.float32, device=device)
     active = torch.ones((n,), dtype=torch.bool, device=device)
     cfg = raster_config or RasterConfig()
-    cfg = cfg._replace(backend=resolve_raster_backend(cfg.backend, device))
     bg = torch.zeros(3, device=device)
     paths = []
     for i, cam in enumerate(cameras):

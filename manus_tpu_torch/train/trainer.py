@@ -13,9 +13,8 @@ logs/events.jsonl, results/val_results/{images,gaussians}/ and
 checkpoints/step%06d-loss%.6f[-vpsnr%.4f].npz.
 
 The trainer keeps a private copy of the config: it may leave lpips_loss
-out of the training loss and maps the raster backend onto the model's
-device, and the caller's config (the one the CLI snapshots) stays as it
-was given.
+out of the training loss, and the caller's config (the one the CLI
+snapshots) stays as it was given.
 
 With trainer.data_axis or trainer.gauss_axis > 1 it trains over a rank
 mesh (parallel/distributed.make_multihost_mesh, one process a rank,
@@ -40,11 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from manus_tpu_torch.config import (
-    ExperimentConfig,
-    config_to_dict,
-    resolve_raster_backend,
-)
+from manus_tpu_torch.config import ExperimentConfig, config_to_dict
 from manus_tpu_torch.data.prefetch import PrefetchLoader
 from manus_tpu_torch.data.voxel import visualize_skin_weights
 from manus_tpu_torch.models.densify import prune_by_mask
@@ -159,9 +154,6 @@ class Trainer:
     ):
         self.device = model.active.device
         cfg = copy.deepcopy(cfg)
-        cfg.raster = dataclasses.replace(
-            cfg.raster,
-            backend=resolve_raster_backend(cfg.raster.backend, self.device))
         self.cfg = cfg
         self.log = log
         self.dataset = dataset

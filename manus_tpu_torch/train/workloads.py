@@ -44,6 +44,10 @@ from manus_tpu_torch.parallel.collectives import (
     broadcast,
 )
 from manus_tpu_torch.parallel.mesh import gauss_rows
+from manus_tpu_torch.parallel.raster import (
+    check_tile_shard_mode,
+    render_sharded,
+)
 from manus_tpu_torch.train import lpips as lpips_mod
 from manus_tpu_torch.train import optim as optim_mod
 from manus_tpu_torch.utils import losses as loss_mod
@@ -109,6 +113,7 @@ def forward_gaussians(params: GaussianParams, active, skin_weights,
 
 def make_raster_config(cfg: ExperimentConfig) -> RasterConfig:
     r = cfg.raster
+    check_tile_shard_mode(r.tile_shard_mode)
     return RasterConfig(
         tg_max=r.tg_max, chunk=r.chunk,
         max_pairs_per_tile=r.max_pairs_per_tile, backend=r.backend,
@@ -192,13 +197,12 @@ def make_train_step(cfg: ExperimentConfig, extent: float, articulated: bool,
         totals, radii, parts, overflow = [], [], [], []
         gt_feats = batch.get("lpips_gt_feats")
         for i in range(batch["rgb"].shape[0]):
-            out = render_gaussians(
-                posed_xyz, posed_cov, params.xyz, feats, opac,
-                index_camera(batch["cameras"], i), batch["bg"],
-                sh_degree=opts.sh_degree, tf=tf, active=active,
-                means2d_offset=m2d_off[i], config=raster_cfg,
-                gauss_group=g_group, gauss_axis_size=n_gauss,
-            )
+            args = (posed_xyz, posed_cov, params.xyz, feats, opac,
+                    index_camera(batch["cameras"], i), batch["bg"])
+            kw = dict(sh_degree=opts.sh_degree, tf=tf, active=active,
+                      means2d_offset=m2d_off[i], config=raster_cfg)
+            out = (render_sharded(*args, **kw, group=g_group, n=n_gauss)
+                   if n_gauss > 1 else render_gaussians(*args, **kw))
             total, part = loss_mod.compute_losses(
                 out.render, batch["rgb"][i], scaling_full, active_full,
                 loss_names,

@@ -10,7 +10,8 @@ library under the same name, so a later process reads the report of a
 library it did not build. Several sources build in parallel, one
 compiler each, and a failed build raises.
 Nothing is built when a module is imported: the first call that needs a
-library builds it.
+library builds it. `Kernels` is a kernel module's handle on its library:
+the load, the launch, the raise on a failed launch and the count.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -115,6 +118,13 @@ def build(names) -> dict[str, str]:
     return {name: log_path(name).read_text() for name in names}
 
 
+def _typed(lib: ctypes.CDLL, signatures: dict) -> ctypes.CDLL:
+    for fn, (argtypes, restype) in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The library of csrc/<name>.cu or .cpp, built if needed, with each
     function of `signatures` ({fn: (argtypes, restype)}) typed."""
@@ -122,9 +132,76 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            for fn, (argtypes, restype) in signatures.items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = restype
+            lib = _typed(ctypes.CDLL(str(library_path(name))), signatures)
             _loaded[name] = lib
     return lib
+
+
+def ptr(x: torch.Tensor | None):
+    """The tensor's device pointer, or None (a null pointer) for None."""
+    return None if x is None else x.data_ptr()
+
+
+def check_tensor(x: torch.Tensor, name: str, dtype, shape, device,
+                 align: int = 0):
+    """x is a contiguous `dtype` tensor of `shape` (None: any size on that
+    axis) on `device`, its data `align`-byte aligned where align is given;
+    or ValueError naming it."""
+    if x.device != device or x.dtype != dtype or x.dim() != len(shape) \
+            or any(s is not None and s != d for s, d in zip(shape, x.shape)) \
+            or not x.is_contiguous() or (align and x.data_ptr() % align):
+        aligned = f", {align}-byte aligned" if align else ""
+        raise ValueError(
+            f"{name} must be a contiguous{aligned} {dtype} {tuple(shape)} "
+            f"tensor on {device}, got {x.dtype} {tuple(x.shape)} on "
+            f"{x.device}")
+
+
+class Kernels:
+    """The library of csrc/<name>.cu as a kernel module launches it.
+
+    Every entry point returns a cudaError_t; those that launch take the
+    stream last. `signatures` ({fn: (argtypes, restype)}) gains the
+    library's `<name>_error_string`. The library is built and loaded at
+    the first call that needs it; `lib` may be set to another build of
+    the same source (`open`), as the tuning scripts do.
+    """
+
+    def __init__(self, name: str, signatures: dict):
+        self.name = name
+        self.signatures = {**signatures, f"{name}_error_string": (
+            [ctypes.c_int], ctypes.c_char_p)}
+        self.lib: ctypes.CDLL | None = None
+
+    def get(self) -> ctypes.CDLL:
+        if self.lib is None:
+            self.lib = load(self.name, self.signatures)
+        return self.lib
+
+    def open(self, path) -> ctypes.CDLL:
+        """Another build of the source, at `path`, typed alike."""
+        return _typed(ctypes.CDLL(str(path)), self.signatures)
+
+    def check(self, rc: int, what: str):
+        """Raise on the non-zero return `rc` of the entry point `what`."""
+        if rc != 0:
+            decode = getattr(self.get(), f"{self.name}_error_string")
+            raise RuntimeError(
+                f"{what} launch failed: {decode(rc).decode()} ({rc})")
+
+    def launch(self, entry: str, *args, device, counter=None):
+        """entry(*args) on the current stream of `device`; raises on a
+        non-zero return, and counts the launch on `counter.launches` (a
+        wrapper's count, `counted`) once it is made."""
+        rc = getattr(self.get(), entry)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+        self.check(rc, entry)
+        if counter is not None:
+            counter.launches += 1
+
+
+def counted(fn):
+    """A kernel wrapper with its `launches` count, which Kernels.launch
+    moves: the kernels it actually launched since the process started."""
+    fn.launches = 0
+    return fn

@@ -60,8 +60,6 @@ Chrome trace export carries them as counter events ("ph": "C"). The
 counters the port records:
 
   gaussians.live            live slots after a train step (make_train_step)
-  raster.project_kernel     1 a view whose projection stage took the CUDA
-                            kernels (render_gaussians, backend "cuda")
   raster.pairs_emitted      a view's (gaussian, tile) pairs before any
                             drop rule: kept plus dropped
   raster.pairs_kept         the pairs the view composites (TileBins'

@@ -49,11 +49,7 @@ def build_variant(chunk: int, batch: int) -> ctypes.CDLL:
     for line in (log.stdout + log.stderr).splitlines():
         if "registers" in line or "spill" in line and "0 bytes spill stores" not in line:
             print("  " + line.strip())
-    lib = ctypes.CDLL(str(out))
-    for fn, (argtypes, restype) in composite._SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
-    return lib
+    return composite.LIBRARY.open(out)
 
 
 def kernel_us(pay, bins, dev, reps=10):
@@ -131,7 +127,7 @@ def main() -> int:
         for bwd_batch in map(int, args.batches.split(",")):
             print(f"variant: {chunk} pairs an item, backward batches of {bwd_batch}")
             lib = build_variant(chunk, bwd_batch)
-            composite._library = lambda lib=lib: lib
+            composite.LIBRARY.lib = lib
             row = dict(chunk=chunk, bwd_batch=bwd_batch,
                        ctas_per_sm=composite.kernel_occupancy())
             for name, (pay, bins) in payloads.items():

@@ -76,7 +76,7 @@ def host_us(fn, reps=200):
 def c_entry_us(xl, mask_by, w, b, relu, L, plan):
     """Host time of the library's C entry point alone (tensor maps encoded,
     kernels enqueued), outputs and workspace allocated once."""
-    lib = cuda_build.load("conv3x3", conv._CONV_SIGNATURES)
+    lib = conv.CONV_LIBRARY.get()
     y = torch.empty(L.rows, w.shape[1], dtype=torch.bfloat16, device=xl.device)
     ws = torch.empty(max(plan.workspace, 1), dtype=torch.float32,
                      device=xl.device)

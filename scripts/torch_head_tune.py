@@ -48,11 +48,7 @@ def build_variant(conv, cuda_build, values) -> ctypes.CDLL:
         if "registers" in line or ("spill" in line
                                    and "0 bytes spill stores" not in line):
             print("  " + line.strip())
-    lib = ctypes.CDLL(str(out))
-    for fn, (argtypes, restype) in conv._HEAD_SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
-    return lib
+    return conv.HEAD_LIBRARY.open(out)
 
 
 def main() -> int:
@@ -76,7 +72,7 @@ def main() -> int:
         values = tuple(int(v) for v in variant.split(":"))
         print(f"variant {dict(zip(CONSTANTS, values))}:")
         lib = build_variant(conv, cuda_build, values)
-        conv._head_library = lambda lib=lib: lib
+        conv.HEAD_LIBRARY.lib = lib
         conv._head_workspaces.clear()
         stages = []
         for a, b, L, lin, ct in inputs:

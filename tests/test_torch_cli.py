@@ -15,6 +15,7 @@ import torch
 
 import main as jmain
 from manus_tpu_torch import main as tmain
+from manus_tpu_torch.ops.rasterizer.api import resolve_raster_backend
 from manus_tpu_torch.train import checkpoint as tck
 from manus_tpu_torch.utils.io import dump_image, read_png, read_video
 from tests.test_torch_brics import write_dynamic_capture, write_static_capture
@@ -106,7 +107,8 @@ def test_a_jax_run_directory_resumes_in_the_port(tmp_path):
     want, _ = tck.load_raw(best)
     tr = tmain.main(["--device", "cpu", "--config-name", run_dir,
                      "trainer.max_steps=1", "checkpoint=best"])
-    assert tr.cfg.raster.backend == "torch"
+    assert tr.cfg.raster.backend == "xla"
+    assert resolve_raster_backend(tr.cfg.raster.backend, tr.device) == "torch"
     assert tr.state.step == int(want[".step"]) + 1
     ckpts = os.listdir(os.path.join(run_dir, "checkpoints"))
     assert len(ckpts) == 3

@@ -9,6 +9,7 @@ import torch
 import manus_tpu.config as jcfg
 import manus_tpu_torch.config as tcfg
 from manus_tpu_torch import main as tmain
+from manus_tpu_torch.ops.rasterizer.api import resolve_raster_backend
 
 # tests/test_cli.py's override lists
 COMMON = [
@@ -107,16 +108,16 @@ def test_snapshots_load_in_both_packages(name, tmp_path):
 def test_raster_backend_names_on_each_device():
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     for name in ("auto", "pallas", "cuda"):
-        assert tcfg.resolve_raster_backend(name, cuda) == "cuda"
-        assert tcfg.resolve_raster_backend(name, cpu) == "torch"
+        assert resolve_raster_backend(name, cuda) == "cuda"
+        assert resolve_raster_backend(name, cpu) == "torch"
     for name in ("torch", "oracle"):
-        assert tcfg.resolve_raster_backend(name, cuda) == name
-        assert tcfg.resolve_raster_backend(name, cpu) == name
-    assert tcfg.resolve_raster_backend("xla", cpu) == "torch"
+        assert resolve_raster_backend(name, cuda) == name
+        assert resolve_raster_backend(name, cpu) == name
+    assert resolve_raster_backend("xla", cpu) == "torch"
     with pytest.raises(ValueError, match="choose 'cuda'"):
-        tcfg.resolve_raster_backend("xla", cuda)
+        resolve_raster_backend("xla", cuda)
     with pytest.raises(ValueError, match="unknown raster.backend"):
-        tcfg.resolve_raster_backend("triton", cpu)
+        resolve_raster_backend("triton", cpu)
 
 
 def test_cli_refuses_xla_on_a_cuda_device(monkeypatch, tmp_path):

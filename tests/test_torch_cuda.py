@@ -793,7 +793,7 @@ def test_cuda_nearest_neighbor_counts_launches_and_checks_inputs(dev):
 
     from manus_tpu_torch.ops import knn
 
-    lib = knn.knn_library()
+    lib = knn.LIBRARY.get()
     cfg = (ctypes.c_int * 5)()
     lib.knn_config(cfg)
     assert list(cfg) == [knn.KNN_THREADS, knn.KNN_QUERIES, knn.KNN_TILE,

@@ -90,26 +90,64 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_cuda_backend_on_cpu_tensors_raises():
-    from manus_tpu_torch.ops.rasterizer import composite
-    from manus_tpu_torch.ops.rasterizer.api import RasterConfig, render_gaussians
+def _tiny_render_inputs(n: int = 8):
+    """Eight gaussians in front of a 32x32 camera, on the CPU."""
     from manus_tpu_torch.utils.camera import make_camera
 
     cam = make_camera([[40.0, 0, 15.5], [0, 40.0, 15.5], [0, 0, 1]],
                       [[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, 3.0]],
                       32, 32, device="cpu")
-    n = 8
-    with pytest.raises(ValueError, match="backend='cuda' needs CUDA"):
-        render_gaussians(torch.zeros(n, 3), torch.zeros(n, 6), torch.zeros(n, 3),
-                         torch.zeros(n, 16, 3), torch.ones(n), cam,
-                         torch.zeros(3), config=RasterConfig(backend="cuda"))
+    g = torch.Generator().manual_seed(3)
+    means = torch.rand(n, 3, generator=g) - 0.5
+    s2 = torch.full((n,), 0.01)
+    z = torch.zeros(n)
+    cov = torch.stack([s2, z, z, s2, z, s2], dim=-1)
+    feats = torch.rand(n, 16, 3, generator=g)
+    return (means, cov, means, feats, torch.full((n,), 0.8), cam,
+            torch.zeros(3))
+
+
+def test_cuda_backend_on_cpu_tensors_renders_plain():
+    """One name means one thing: the kernels' names on CPU tensors are the
+    plain path, as for every other op; only the CUDA wrappers refuse a CPU
+    tensor, and only the config's conversion refuses an unknown
+    tile_shard_mode."""
+    from manus_tpu_torch.config import hand_config
+    from manus_tpu_torch.ops.rasterizer import composite
+    from manus_tpu_torch.ops.rasterizer.api import RasterConfig, render_gaussians
+    from manus_tpu_torch.train.workloads import make_raster_config
+
+    args = _tiny_render_inputs()
+    plain = render_gaussians(*args, config=RasterConfig(backend="torch"))
+    assert plain.t_final.min() < 1.0
+    got = render_gaussians(*args, config=RasterConfig(backend="cuda"))
+    assert torch.equal(got.render, plain.render)
+    assert torch.equal(got.t_final, plain.t_final)
     with pytest.raises(ValueError, match="CUDA payload"):
         composite.composite_fwd_cuda(
             torch.zeros(16, 128), torch.zeros(4, dtype=torch.int32),
             torch.zeros(4, dtype=torch.int32), 2, 2)
     # JAX falls back to owner on an unknown tile_shard_mode; the port raises
+    cfg = hand_config()
+    cfg.raster.tile_shard_mode = "stripes"
     with pytest.raises(ValueError, match="unknown tile_shard_mode"):
-        render_gaussians(torch.zeros(n, 3), torch.zeros(n, 6), torch.zeros(n, 3),
-                         torch.zeros(n, 16, 3), torch.ones(n), cam,
-                         torch.zeros(3), config=RasterConfig(
-                             backend="torch", tile_shard_mode="stripes"))
+        make_raster_config(cfg)
+
+
+@pytest.mark.parametrize("name", ["auto", "pallas", "cuda", "xla"])
+def test_kernel_and_jax_backend_names_render_plain_on_cpu(name):
+    """render_gaussians resolves the backend against its tensors' device:
+    on the CPU every kernel name, and the JAX package's "xla", is the plain
+    path, forward and backward."""
+    from manus_tpu_torch.ops.rasterizer.api import RasterConfig, render_gaussians
+
+    outs = []
+    for backend in ("torch", name):
+        means, cov, cano, feats, opac, cam, bg = _tiny_render_inputs()
+        feats.requires_grad_(True)
+        out = render_gaussians(means, cov, cano, feats, opac, cam, bg,
+                               config=RasterConfig(backend=backend))
+        out.render.square().sum().backward()
+        outs.append((out.render.detach(), feats.grad))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
