@@ -8,7 +8,7 @@ on BRICS captures read from disk, and sharded training over ranks.
 Phases, each of which exits non-zero on failure:
 
   1. build: nvcc compiles manus_tpu_torch/csrc/*.cu (composite, conv3x3,
-     lpips_head, knn, project) for sm_90a into manus_tpu_torch/_build/ (one nvcc per
+     lpips_head, knn, project, ssim) for sm_90a into manus_tpu_torch/_build/ (one nvcc per
      source, in parallel, beside g++ for the host assembly of
      csrc/image_ops.cpp); ptxas's report of every library, read from the
      log kept beside it (also for one built earlier), must show no spill;
@@ -203,6 +203,19 @@ Phases, each of which exits non-zero on failure:
      kernels launched as often as the composite kernels, forward and
      backward: one projection a render.
 
+ 16. ssim (runs after 15): the SSIM kernels (csrc/ssim.cu,
+     losses.ssim_fwd_cuda and ssim_bwd_cuda) at the training view's
+     SSIM_SHAPE: the value and the gradient against the plain banded
+     chain (ssim_torch and autograd) on the same card within
+     SSIM_VALUE_ATOL and SSIM_GRAD_RTOL; the forward's (with the partial
+     maps, the training form, and without, the eval form) and the
+     backward's ms HBM-cold (CUDA-graph replays rotating over copies of
+     their inputs past 100 MB) and of one input, beside their bytes and
+     operations bound; the plain chain's forward ms without and with
+     grad and its forward + backward ms; ptxas's registers. The trainer
+     phase's CLI run checks that the forward launched once a trained view
+     and once an eval render, and the backward once a trained view.
+
  13. parallel: the sharded training path (manus_tpu_torch/parallel/).
      (a) The composite kernels' tile-id form on the bench scene's view at
      each of PAR_SHAPES (512x512 and 1280x720) with PAR_G owners: each
@@ -336,6 +349,7 @@ from manus_tpu_torch.train.workloads import (
     resolve_skin_weights,
 )
 from manus_tpu_torch.utils import cuda_build
+from manus_tpu_torch.utils import losses as loss_mod
 from manus_tpu_torch.utils.camera import (
     index_camera,
     make_camera,
@@ -562,6 +576,15 @@ KNN_POINTS, KNN_VALID, KNN_REPS = 131072, 0.9, 20
 # in another order than autograd's (tests/test_torch_project_cuda.py).
 PROJECT_ROWS = {"hand": 131072, "object": 1048576}
 PROJECT_COLOR_TOL, PROJECT_GRAD_TOL = 1e-5, 1e-4
+# The SSIM kernels at a training view's size (phase 16), held to the plain
+# chain as tests/test_torch_cuda.py holds them (SSIM_VALUE_ATOL and
+# SSIM_GRAD_RTOL there), and their float operations a pixel channel as the
+# kernels run them (an FMA two): forward, the horizontal pass's 3 products
+# and 5 FMAs a tap, the vertical pass's 5 FMAs a tap and ~25 for s and its
+# maps; backward, 3 FMAs a tap each way and 5 to combine.
+SSIM_SHAPE = (720, 1280)
+SSIM_VALUE_ATOL, SSIM_GRAD_RTOL = 2e-6, 1e-5
+SSIM_FWD_FLOP, SSIM_BWD_FLOP = 11 * 13 + 11 * 10 + 25, 11 * 6 * 2 + 5
 REPLACES = {
     "composite_fwd": "manus_tpu/ops/rasterizer/pallas_backend.py:105",
     "composite_bwd": "manus_tpu/ops/rasterizer/pallas_backend.py:258",
@@ -594,9 +617,13 @@ COUNTERS = {
 # "cuda", and one backward a render whose gradient reaches them.
 PROJECT_COUNTERS = {"project_fwd": proj_mod.project_fwd_cuda,
                     "project_bwd": proj_mod.project_bwd_cuda}
-# Every count _run_cli reads: the kernels' above, the search kernel's and
-# the projection kernels'.
-COUNTED = (*COUNTERS, "nearest_neighbor", *PROJECT_COUNTERS)
+# The SSIM kernels' wrappers: one forward a view a step and an eval
+# render, one backward a view a step.
+SSIM_COUNTERS = {"ssim_fwd": loss_mod.ssim_fwd_cuda,
+                 "ssim_bwd": loss_mod.ssim_bwd_cuda}
+# Every count _run_cli reads: the kernels' above, the search kernel's, the
+# projection kernels' and the SSIM kernels'.
+COUNTED = (*COUNTERS, "nearest_neighbor", *PROJECT_COUNTERS, *SSIM_COUNTERS)
 # Launches per view and step of each kernel on the LPIPS step.
 PER_STEP = {"composite_fwd": 1, "composite_bwd": 1, "conv3x3_layout": 13,
             "conv3x3_layout_dx": 13, "lpips_head_fwd": 5, "lpips_head_bwd": 5,
@@ -1350,6 +1377,106 @@ def project_phase(dev, ptxas_log):
     return out
 
 
+def ssim_images(h, w, dev, seed=0):
+    """(pred, gt) [h, w, 3] float32 in [0, 1]: uniform noise and a noisy
+    copy, a black quarter (the background) in both."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gt = torch.rand(h, w, 3, device=dev, generator=gen)
+    pred = (gt + 0.1 * torch.randn(h, w, 3, device=dev, generator=gen))
+    pred = pred.clamp(0, 1)
+    for img in (pred, gt):
+        img[: h // 2, : w // 2] = 0.0
+    return pred, gt
+
+
+def ssim_check(pred, gt):
+    """The kernel pair against the plain chain: (value gap, gradient gap
+    over the largest term of the closed form, as the tests scale it)."""
+    leaf = pred.clone().requires_grad_(True)
+    want = loss_mod.ssim_torch(leaf, gt)
+    want_g, = torch.autograd.grad(want, leaf)
+    leaf = pred.clone().requires_grad_(True)
+    got = loss_mod.ssim_cuda(leaf, gt)
+    got_g, = torch.autograd.grad(got, leaf)
+    value_gap = abs(got.item() - want.item())
+    _, part = loss_mod.ssim_partials(pred, gt)
+    b = [loss_mod._depthwise_blur(p, 11, 1.5) for p in part]
+    terms = (b[0].abs() + (2 * pred * b[1]).abs() + (gt * b[2]).abs()).max()
+    grad_gap = ((got_g - want_g).abs().max() * pred.numel() / terms).item()
+    check(value_gap <= SSIM_VALUE_ATOL,
+          f"ssim: value {got.item()} against the plain {want.item()}")
+    check(grad_gap <= SSIM_GRAD_RTOL,
+          f"ssim: gradient {grad_gap:.2e} of its largest term from autograd's")
+    return value_gap, grad_gap
+
+
+def ssim_phase(dev, ptxas_log):
+    """The SSIM kernels at a training view's size (docstring phase 16).
+    ptxas_log: the build's output for csrc/ssim.cu."""
+    h, w = SSIM_SHAPE
+    pred, gt = ssim_images(h, w, dev)
+    value_gap, grad_gap = ssim_check(pred, gt)
+    n = pred.numel()
+    _, part = loss_mod.ssim_fwd_cuda(pred, gt)
+    grad = torch.ones((), device=dev)
+    forms = {
+        "fwd": (lambda p, g: loss_mod.ssim_fwd_cuda(p, g), (pred, gt),
+                5 * 4 * n, SSIM_FWD_FLOP * n),
+        "fwd_eval": (lambda p, g: loss_mod.ssim_fwd_cuda(p, g,
+                                                         partials=False),
+                     (pred, gt), 2 * 4 * n, SSIM_FWD_FLOP * n),
+        "bwd": (lambda m, p, g, c: loss_mod.ssim_bwd_cuda(m, p, g, c),
+                (part, pred, gt, grad), 6 * 4 * n, SSIM_BWD_FLOP * n),
+    }
+    ms = {}
+    for form, (launch, args, nbytes, flops) in forms.items():
+        cold = rotated_graph_ms(launch, cold_copies(*args))
+        one = cuda_graph_ms(lambda: launch(*args), 20)
+        bound, by_bytes, by_flops = bound_ms(nbytes, flops, FP32_FLOP_PER_S)
+        ms[form] = dict(ms=cold, one_input_ms=one, bound_ms=bound,
+                        bound_by="bytes" if by_bytes >= by_flops
+                        else "operations", mbytes=nbytes / 1e6,
+                        gflop=flops / 1e9)
+    leaf = pred.clone().requires_grad_(True)
+
+    def plain_fwd():
+        return loss_mod.ssim_torch(leaf, gt)
+
+    def plain_step():
+        return torch.autograd.grad(plain_fwd(), leaf)
+
+    with torch.no_grad():
+        plain_fwd_ms = cuda_ms(plain_fwd, 5)
+    plain_graph_ms = cuda_ms(plain_fwd, 5)
+    plain_step_ms = cuda_ms(plain_step, 5)
+    for form, m in ms.items():
+        print(f"ssim {form}: {h}x{w}x3: {m['ms']:.4f} ms HBM-cold, "
+              f"{m['one_input_ms']:.4f} one input (bound {m['bound_ms']:.4f} "
+              f"by {m['bound_by']}: {m['mbytes']:.1f} MB, "
+              f"{m['gflop']:.3f} GFLOP)")
+    print(f"ssim plain chain: forward {plain_fwd_ms:.3f} ms "
+          f"({plain_graph_ms:.3f} with grad), forward + backward "
+          f"{plain_step_ms:.3f} ms; value {value_gap:.2e}, gradient "
+          f"{grad_gap:.2e} of its largest term from the plain chain's")
+    ptxas = [ln.strip() for ln in ptxas_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"ssim ptxas: {ptxas}")
+    return {
+        "ssim_fwd": dict(shape=[h, w, 3], ms=ms["fwd"]["ms"],
+                         one_input_ms=ms["fwd"]["one_input_ms"],
+                         bound_ms=ms["fwd"]["bound_ms"],
+                         bound_by=ms["fwd"]["bound_by"],
+                         eval_ms=ms["fwd_eval"]["ms"],
+                         eval_bound_ms=ms["fwd_eval"]["bound_ms"],
+                         plain_ms=plain_fwd_ms, max_abs_err=value_gap),
+        "ssim_bwd": dict(shape=[h, w, 3], ms=ms["bwd"]["ms"],
+                         one_input_ms=ms["bwd"]["one_input_ms"],
+                         bound_ms=ms["bwd"]["bound_ms"],
+                         bound_by=ms["bwd"]["bound_by"],
+                         plain_ms=plain_step_ms - plain_graph_ms,
+                         max_rel_err=grad_gap)}
+
+
 def composite_bounds(n_walk):
     """((ms, "bytes" or "operations") of the forward, of the backward):
     the least time the card could take for the work of this payload's
@@ -1972,7 +2099,8 @@ def _run_cli(argv):
     lines, peak device MiB, wall s)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in (*COUNTERS.values(), *PROJECT_COUNTERS.values()):
+    for fn in (*COUNTERS.values(), *PROJECT_COUNTERS.values(),
+               *SSIM_COUNTERS.values()):
         fn.launches = 0
     knn_mod.nearest_neighbor_cuda.launches = 0
     tee = Tee(sys.stdout)
@@ -1987,7 +2115,8 @@ def _run_cli(argv):
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
     launches["nearest_neighbor"] = knn_mod.nearest_neighbor_cuda.launches
     launches.update({name: fn.launches
-                     for name, fn in PROJECT_COUNTERS.items()})
+                     for name, fn in (*PROJECT_COUNTERS.items(),
+                                      *SSIM_COUNTERS.items())})
     return (tr, launches, tee.lines,
             torch.cuda.max_memory_allocated() / 2**20, wall)
 
@@ -2104,6 +2233,12 @@ def trainer_phase(bare_ms):
               f"trainer: {name} launched {launches[name]} times, not {n}")
     check(n_eval >= 4, f"trainer: {n_eval} eval renders")
     check_projection(launches, "trainer")
+    # the SSIM term: a forward a trained view and eval render, a backward
+    # a trained view (the composite backward's count)
+    ssim_want = (launches["composite_bwd"] + n_eval, launches["composite_bwd"])
+    ssim_got = (launches["ssim_fwd"], launches["ssim_bwd"])
+    check(ssim_got == ssim_want, f"trainer: the SSIM kernels launched "
+          f"{ssim_got} times (forward, backward), not {ssim_want}")
     del tr, back
 
     rtr, rlaunches, rlines, rpeak, rwall = _run_cli([
@@ -3960,8 +4095,8 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    # the four kernel sources (nvcc) and the host assembly (g++)
-    names = ["composite", "conv3x3", "lpips_head", "knn", "project",
+    # the kernel sources (nvcc) and the host assembly (g++)
+    names = ["composite", "conv3x3", "lpips_head", "knn", "project", "ssim",
              "image_ops"]
     cached = [n for n in names if cuda_build.library_path(n).exists()
               and cuda_build.log_path(n).exists()]
@@ -4007,6 +4142,7 @@ def main() -> int:
     launches.update({n: lpips_launches[n] for n in lpips_results})
     results.update(knn_phase(dev, logs["knn"]))
     results.update(project_phase(dev, logs["project"]))
+    results.update(ssim_phase(dev, logs["ssim"]))
 
     flagship_ms = flagship_phase(dev)
     print(f"flagship step: median {flagship_ms:.3f} ms (the primary plain "
@@ -4061,7 +4197,12 @@ def main() -> int:
              replaces="none (the JAX package's calculate_colors_from_sh and "
                       "project_gaussians are plain JAX)",
              launches=launches[name], library_ms=None, **results[name])
-        for name in PROJECT_COUNTERS]
+        for name in PROJECT_COUNTERS] + [
+        dict(name=name, route="cuda", source="manus_tpu_torch/csrc/ssim.cu",
+             replaces="none (the JAX package's ssim is plain JAX, banded "
+                      "matrix products)",
+             launches=launches[name], library_ms=None, **results[name])
+        for name in SSIM_COUNTERS]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

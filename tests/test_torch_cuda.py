@@ -1006,3 +1006,122 @@ def test_cuda_brics_capture_loads_on_the_card(dev, tmp_path):
     np.testing.assert_allclose(got["rgb"], want[0], atol=1e-6)
     np.testing.assert_allclose(got["mask"], want[1], atol=1e-6)
     ds.close()
+
+
+# The SSIM kernels (csrc/ssim.cu) against the plain banded version on the
+# card: the training view's 720x1280 (rows whose 3 W floats take 16-byte
+# loads) and the CPU test's odd shapes (rows that do not), plus 720x1280
+# at a pointer off 16-byte alignment.
+SSIM_SHAPES = [(720, 1280, 0), (5, 7, 0), (11, 11, 0), (37, 53, 0),
+               (64, 96, 0), (720, 1280, 1)]
+# Both sides are float32, their blurs summed in other orders (11 + 11 taps
+# against cuBLAS's k-loop over the band). A map value moves by the
+# rounding of the statistics, u E[x x] against B2 >= C2 where a window is
+# flat, and the mean averages those roundings of either sign: 2e-6 on the
+# value. The gradient's entries are sums of three blurred terms (the
+# closed form, against autograd's chain), each within a few ulps of its
+# partial maps' rounding: 1e-5 of the largest term, as
+# tests/test_torch_ssim.py scales it.
+SSIM_VALUE_ATOL, SSIM_GRAD_RTOL = 2e-6, 1e-5
+
+
+def _ssim_images(h, w, seed, dev, offset=0):
+    """(pred, gt) [h, w, 3] float32 in [0, 1] on the card, as a render and
+    its view: a smooth field with fine noise, a black quarter (the
+    background) in both, pred gt plus noise; `offset` floats into their
+    buffers."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.linspace(0, 6, h, device=dev),
+                            torch.linspace(0, 9, w, device=dev),
+                            indexing="ij")
+    base = 0.5 + 0.3 * torch.sin(yy)[..., None] * torch.cos(
+        xx)[..., None] * torch.tensor([1.0, 0.7, 0.4], device=dev)
+    gt = (base + 0.05 * torch.randn(h, w, 3, device=dev, generator=gen))
+    pred = gt + 0.1 * torch.randn(h, w, 3, device=dev, generator=gen)
+    out = []
+    for img in (pred, gt):
+        img = img.clamp(0, 1)
+        img[: h // 2, : w // 2] = 0.0
+        buf = torch.empty(offset + h * w * 3, device=dev)
+        buf[offset:] = img.reshape(-1)
+        out.append(buf[offset:].view(h, w, 3))
+    return out
+
+
+@pytest.mark.parametrize("h,w,offset", SSIM_SHAPES,
+                         ids=[f"{h}x{w}" + ("_off" if o else "")
+                              for h, w, o in SSIM_SHAPES])
+def test_cuda_ssim_matches_plain(dev, h, w, offset):
+    from manus_tpu_torch.utils import losses
+
+    pred, gt = _ssim_images(h, w, h + w, dev, offset)
+    leaf = pred.clone().requires_grad_(True)
+    want = losses.ssim_torch(leaf, gt)
+    want_g, = torch.autograd.grad(0.7 * want, leaf)
+    # the kernels' input: a view `offset` floats into a buffer that takes
+    # the gradient
+    buf = torch.zeros(offset + pred.numel(), device=dev)
+    buf[offset:] = pred.reshape(-1)
+    buf.requires_grad_(True)
+    got = losses.ssim_cuda(buf[offset:].view(h, w, 3), gt)
+    got_g = torch.autograd.grad(0.7 * got, buf)[0][offset:].view(h, w, 3)
+    assert abs(got.item() - want.item()) <= SSIM_VALUE_ATOL, (
+        got.item(), want.item())
+    _, part = losses.ssim_partials(pred.detach(), gt)
+    blurred = [losses._depthwise_blur(p, 11, 1.5) for p in part]
+    terms = (blurred[0].abs() + (2 * pred.detach() * blurred[1]).abs()
+             + (gt * blurred[2]).abs()).max() * 0.7 / pred.numel()
+    gap = (got_g - want_g).abs().max().item()
+    assert gap <= SSIM_GRAD_RTOL * terms.item(), (gap, terms.item())
+
+
+def test_cuda_ssim_counts_launches_and_repeats_its_bits(dev):
+    """One forward and one backward launch a differentiated call, the
+    forward alone under no_grad (no partial maps); two launches give the
+    same bits, with or without the maps."""
+    from manus_tpu_torch.utils import losses
+
+    pred, gt = _ssim_images(72, 128, 5, dev)
+    f0, b0 = losses.ssim_fwd_cuda.launches, losses.ssim_bwd_cuda.launches
+    leaf = pred.clone().requires_grad_(True)
+    value = losses.ssim(leaf, gt)
+    g1, = torch.autograd.grad(value, leaf)
+    assert (losses.ssim_fwd_cuda.launches - f0,
+            losses.ssim_bwd_cuda.launches - b0) == (1, 1)
+    with torch.no_grad():
+        again = losses.ssim(leaf, gt)
+    assert (losses.ssim_fwd_cuda.launches - f0,
+            losses.ssim_bwd_cuda.launches - b0) == (2, 1)
+    assert torch.equal(again, value.detach())
+    value2, part = losses.ssim_fwd_cuda(pred, gt)
+    _, none = losses.ssim_fwd_cuda(pred, gt, partials=False)
+    assert none is None and torch.equal(value2, value.detach())
+    g2 = losses.ssim_bwd_cuda(part, pred, gt, torch.ones((), device=dev))
+    assert torch.equal(g1, g2)
+    # a training step's form: the gt a slice of the batch, the loss 1 - s
+    batch = torch.stack([gt, pred.detach()])
+    leaf = pred.clone().requires_grad_(True)
+    g3, = torch.autograd.grad(1.0 - losses.ssim(leaf, batch[0]), leaf)
+    assert torch.equal(g3, -g1)
+
+
+def test_cuda_ssim_checks_inputs(dev):
+    from manus_tpu_torch.utils import losses
+
+    pred, gt = _ssim_images(16, 24, 1, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        losses.ssim_cuda(pred.transpose(0, 1), gt.transpose(0, 1))
+    with pytest.raises(ValueError, match="float32"):
+        losses.ssim_cuda(pred.double(), gt.double())
+    with pytest.raises(ValueError, match=r"\[H, W, 3\]"):
+        losses.ssim_cuda(torch.rand(16, 24, 4, device=dev),
+                         torch.rand(16, 24, 4, device=dev))
+    with pytest.raises(ValueError, match="img2"):
+        losses.ssim_cuda(pred, gt.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="img2"):
+        losses.ssim_cuda(pred, gt[:8].contiguous())
+    with pytest.raises(ValueError, match="11-tap"):
+        losses.ssim_cuda(pred, gt, window_size=7)
+    part = torch.empty(3, 16, 24, 3, device=dev)
+    with pytest.raises(ValueError, match="grad"):
+        losses.ssim_bwd_cuda(part, pred, gt, torch.ones(1, device=dev))

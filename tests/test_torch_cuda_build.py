@@ -9,12 +9,12 @@ import torch
 
 from manus_tpu_torch.ops import conv, knn
 from manus_tpu_torch.ops.rasterizer import composite, projection
-from manus_tpu_torch.utils import cuda_build
+from manus_tpu_torch.utils import cuda_build, losses
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 LIBRARIES = {"composite": composite.LIBRARY, "project": projection.LIBRARY,
              "knn": knn.LIBRARY, "conv3x3": conv.CONV_LIBRARY,
-             "lpips_head": conv.HEAD_LIBRARY}
+             "lpips_head": conv.HEAD_LIBRARY, "ssim": losses.LIBRARY}
 
 
 class StubLibrary:
