@@ -350,6 +350,7 @@ from manus_tpu_torch.train.workloads import (
 )
 from manus_tpu_torch.utils import cuda_build
 from manus_tpu_torch.utils import losses as loss_mod
+from manus_tpu_torch.utils import trace
 from manus_tpu_torch.utils.camera import (
     index_camera,
     make_camera,
@@ -2616,20 +2617,18 @@ def composite_phase(dev, hand_run_dir):
     ft = runs["finetune"]
     step = make_composite_finetune_step(cfg, raster, "hand", voxel_grid=vg)
 
-    def scene_loss(h):
-        losses = []
-        for f in range(ds.num_frames):
-            for v in range(ds.num_views):
-                raw = ds.get_batch(f, np.asarray([v]))
-                batch = dict(
-                    rgb=torch.as_tensor(raw["rgb"][0], device=dev),
+    def batch_of(f, v):
+        raw = ds.get_batch(f, np.asarray([v]))
+        return dict(rgb=torch.as_tensor(raw["rgb"][0], device=dev),
                     mask=torch.as_tensor(raw["mask"][0], dtype=torch.float32,
                                          device=dev),
                     camera=index_camera(ds.cameras, v),
                     bg=torch.zeros(3, device=dev),
                     bone_tf=cli._bone_tf(ds, f, vg))
-                losses.append(step(init_train_state(h), obj, batch)[1][
-                    "loss"])
+
+    def scene_loss(h):
+        losses = [step(init_train_state(h), obj, batch_of(f, v))[1]["loss"]
+                  for f in range(ds.num_frames) for v in range(ds.num_views)]
         return torch.stack(losses).mean().item()
 
     before, after = scene_loss(hand0), scene_loss(ft.models.hand)
@@ -2637,6 +2636,27 @@ def composite_phase(dev, hand_run_dir):
           f"{ds.num_views} images {before:.6f} with the trained hand, "
           f"{after:.6f} after {len(ft.finetune_loss)} steps")
     check(after < before, "composite: the fine-tune loss did not fall")
+
+    # a traced fine-tune step: the slots the trained model places in the
+    # scene, and the rows the projection kernel's one backward launch
+    # covers (the frozen object's among them)
+    trace.clear()
+    trace.enable()
+    try:
+        step(init_train_state(hand0), obj, batch_of(0, 0))
+    finally:
+        trace.disable()
+    counted = {}
+    for c in trace.counters():
+        counted.setdefault(c.name, []).append(c.value)
+    trace.clear()
+    rows = hand0.capacity + obj.capacity
+    print(f"composite fine-tune traced step: counters {counted}")
+    check(counted.get("composite.rows_trained") == [hand0.capacity]
+          and counted.get("raster.grad_rows") == [rows],
+          f"composite: a traced fine-tune step counted {counted}, not "
+          f"{hand0.capacity} trained rows and one projection backward of "
+          f"{rows}")
 
     # the MANO baseline on a procedural mesh, against the CPU
     verts, faces = icosphere(BASELINE_LEVEL)

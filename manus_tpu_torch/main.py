@@ -351,22 +351,26 @@ def run_composite(cfg, out_dir, device=None) -> CompositeRun:
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         for it in range(cfg.finetune_steps):
-            f = rng.randint(dataset.num_frames)
-            v = rng.randint(dataset.num_views)
-            raw = dataset.get_batch(f, np.asarray([v]))
-            batch = dict(
-                rgb=torch.as_tensor(raw["rgb"][0], dtype=torch.float32,
-                                    device=device),
-                mask=torch.as_tensor(raw["mask"][0], dtype=torch.float32,
-                                     device=device),
-                camera=index_camera(dataset.cameras, v), bg=bg,
-                bone_tf=_bone_tf(dataset, f, hand_vg))
-            state, m = ft_step(state, frozen, batch)
-            ft_loss.append(m["loss"])
-            if it % 50 == 0 or it == cfg.finetune_steps - 1:
-                print(f"[finetune:{optimize}] step {it}: "
-                      f"loss={float(m['loss']):.5f} "
-                      f"psnr={float(m['psnr']):.2f}")
+            with trace.span("composite.finetune_step", step=it):
+                with trace.span("composite.finetune_batch"):
+                    f = rng.randint(dataset.num_frames)
+                    v = rng.randint(dataset.num_views)
+                    raw = dataset.get_batch(f, np.asarray([v]))
+                    batch = dict(
+                        rgb=torch.as_tensor(raw["rgb"][0],
+                                            dtype=torch.float32,
+                                            device=device),
+                        mask=torch.as_tensor(raw["mask"][0],
+                                             dtype=torch.float32,
+                                             device=device),
+                        camera=index_camera(dataset.cameras, v), bg=bg,
+                        bone_tf=_bone_tf(dataset, f, hand_vg))
+                state, m = ft_step(state, frozen, batch)
+                ft_loss.append(m["loss"])
+                if it % 50 == 0 or it == cfg.finetune_steps - 1:
+                    print(f"[finetune:{optimize}] step {it}: "
+                          f"loss={float(m['loss']):.5f} "
+                          f"psnr={float(m['psnr']):.2f}")
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         ft_s = time.perf_counter() - t0

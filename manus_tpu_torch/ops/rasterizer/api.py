@@ -187,6 +187,10 @@ def project(posed_means, posed_cov, cano_means, cano_features, cano_opacity,
             posed_means, cano_features, cano_means, camera, sh_degree, tf)
         proj = project_gaussians(posed_means, posed_cov, camera,
                                  active=active)
+        if trace.enabled() and posed_means.requires_grad:
+            # the plain chain's backward covers every row, as the kernel's
+            posed_means.register_hook(
+                lambda g: trace.count("raster.grad_rows", n))
     return proj, colors_precomp if precomp else colors, opacity, backend
 
 

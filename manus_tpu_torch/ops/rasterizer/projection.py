@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from manus_tpu_torch.utils import cuda_build
+from manus_tpu_torch.utils import cuda_build, trace
 from manus_tpu_torch.utils.camera import Camera
 
 FRUSTUM_NEAR_Z = 0.2
@@ -296,7 +296,8 @@ def project_bwd_cuda(means, cov, cam, width: int, height: int, active, cano,
 
 class _Project(torch.autograd.Function):
     """project_fwd_cuda with project_bwd_cuda as its backward; depth,
-    radius, tile_rect and visible carry no gradient."""
+    radius, tile_rect and visible carry no gradient. Each backward launch
+    counts the rows it covers as `raster.grad_rows` (utils/trace.py)."""
 
     @staticmethod
     def forward(ctx, means, cov, cano, feat, tf, active, cam, size,
@@ -317,6 +318,7 @@ class _Project(torch.autograd.Function):
         if not any(need):
             return (None,) * 9
         means, cov, cano, feat, tf, active = ctx.saved_tensors
+        trace.count("raster.grad_rows", means.shape[0])
         grads = project_bwd_cuda(means, cov, ctx.cam, *ctx.size, active,
                                  cano, feat, tf, ctx.sh_degree, g_means2d,
                                  g_conic, g_colors, need)

@@ -212,6 +212,10 @@ def make_composite_finetune_step(cfg: ExperimentConfig,
     a workloads.TrainState of the trainable model (init_train_state);
     batch: rgb [H, W, 3], mask [H, W, 1], camera (one), bg [3], bone_tf
     [B(+1), 4, 4]. psnr is of the masked render.
+
+    Traced (utils/trace.py), a step opens make_train_step's spans
+    (step.forward, step.backward, step.update) and counts the slots the
+    trained model places in the scene: composite.rows_trained.
     """
     if optimize not in ("hand", "object"):
         raise ValueError(f"optimize must be 'hand' or 'object', got "
@@ -224,41 +228,47 @@ def make_composite_finetune_step(cfg: ExperimentConfig,
     iso = (hand_opts if optimize == "hand" else obj_opts).isotropic_scaling
 
     def step(state: TrainState, frozen: GaussianModel, batch):
-        params = GaussianParams(*(p.detach().requires_grad_(True)
-                                  for p in state.model.params))
-        train_model = state.model._replace(params=params)
-        hand = train_model if optimize == "hand" else frozen
-        obj = frozen if optimize == "hand" else train_model
-        skin_w = _skin_weights_traced(hand, voxel_grid)
-        (h_xyz, h_cov, h_tf), (o_xyz, o_cov, o_tf) = _scene(
-            hand, obj, skin_w, batch["bone_tf"], hand_opts, obj_opts)
-        hp, op_ = hand.params, obj.params
-        out = render_gaussians(
-            torch.cat([h_xyz, o_xyz]), torch.cat([h_cov, o_cov]),
-            torch.cat([hp.xyz, op_.xyz]),
-            torch.cat([get_features(hp), get_features(op_)]),
-            torch.cat([get_opacity(hp)[:, 0], get_opacity(op_)[:, 0]]),
-            batch["camera"], batch["bg"], sh_degree=3,
-            tf=torch.cat([h_tf, o_tf]),
-            active=torch.cat([hand.active, obj.active]), config=raster_cfg)
-        total, _ = loss_mod.compute_losses(
-            out.render, batch["rgb"], get_scaling(params, iso),
-            train_model.active, loss_names, loss_weights,
-            opts.condition_number)
-        grads = torch.autograd.grad(total, list(params), allow_unused=True)
-        grads = GaussianParams(*(torch.zeros_like(p) if g is None else g
-                                 for g, p in zip(grads, params)))
-        lrs = optim_mod.group_learning_rates(opts, state.step)
-        new_params, new_opt = optim_mod.adam_update(
-            state.model.params, grads, state.opt, lrs, state.model.active)
-        render = out.render.detach()
-        metrics = dict(loss=total.detach(),
-                       psnr=loss_mod.psnr(render * batch["mask"],
-                                          batch["rgb"] * batch["mask"]))
-        new_state = state._replace(
-            model=state.model._replace(params=GaussianParams(
-                *(p.detach() for p in new_params))),
-            opt=new_opt, step=state.step + 1)
+        trace.count("composite.rows_trained", state.model.capacity)
+        with trace.span("step.forward"):
+            params = GaussianParams(*(p.detach().requires_grad_(True)
+                                      for p in state.model.params))
+            train_model = state.model._replace(params=params)
+            hand = train_model if optimize == "hand" else frozen
+            obj = frozen if optimize == "hand" else train_model
+            skin_w = _skin_weights_traced(hand, voxel_grid)
+            (h_xyz, h_cov, h_tf), (o_xyz, o_cov, o_tf) = _scene(
+                hand, obj, skin_w, batch["bone_tf"], hand_opts, obj_opts)
+            hp, op_ = hand.params, obj.params
+            out = render_gaussians(
+                torch.cat([h_xyz, o_xyz]), torch.cat([h_cov, o_cov]),
+                torch.cat([hp.xyz, op_.xyz]),
+                torch.cat([get_features(hp), get_features(op_)]),
+                torch.cat([get_opacity(hp)[:, 0], get_opacity(op_)[:, 0]]),
+                batch["camera"], batch["bg"], sh_degree=3,
+                tf=torch.cat([h_tf, o_tf]),
+                active=torch.cat([hand.active, obj.active]),
+                config=raster_cfg)
+            total, _ = loss_mod.compute_losses(
+                out.render, batch["rgb"], get_scaling(params, iso),
+                train_model.active, loss_names, loss_weights,
+                opts.condition_number)
+        with trace.span("step.backward"):
+            grads = torch.autograd.grad(total, list(params),
+                                        allow_unused=True)
+            grads = GaussianParams(*(torch.zeros_like(p) if g is None else g
+                                     for g, p in zip(grads, params)))
+        with trace.span("step.update"):
+            lrs = optim_mod.group_learning_rates(opts, state.step)
+            new_params, new_opt = optim_mod.adam_update(
+                state.model.params, grads, state.opt, lrs, state.model.active)
+            render = out.render.detach()
+            metrics = dict(loss=total.detach(),
+                           psnr=loss_mod.psnr(render * batch["mask"],
+                                              batch["rgb"] * batch["mask"]))
+            new_state = state._replace(
+                model=state.model._replace(params=GaussianParams(
+                    *(p.detach() for p in new_params))),
+                opt=new_opt, step=state.step + 1)
         return new_state, metrics
 
     return step

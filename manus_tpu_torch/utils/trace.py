@@ -32,7 +32,8 @@ run. The spans the port opens:
   fit.step            Trainer.fit, one a loop iteration (root; step)
   fit.batch_wait      the wait for the next batch (seq: its number)
   fit.train_step      the train step, as the loop calls it
-  step.forward        the loss (make_train_step)
+  step.forward        the loss (make_train_step,
+                      make_composite_finetune_step)
   step.backward       autograd.grad and the mesh's reductions
   step.update         Adam, the mask prune and the densify statistics
   fit.densify         a densify event (step)
@@ -40,6 +41,10 @@ run. The spans the port opens:
   fit.log             the log_every block, with its host syncs
   prefetch.sample     PrefetchLoader's thread making a batch (seq: the
                       n-th batch put, which the loop's n-th wait receives)
+  composite.finetune_step   run_composite's fine-tune, one a step (root;
+                      step)
+  composite.finetune_batch  its draw of a frame and view, get_batch and
+                      the copies to the device
   composite.frame     run_composite, one a frame (root; frame)
   composite.contacts  make_composite_render's two contact searches
   composite.png       a frame's 8-bit cast and its PNG
@@ -69,6 +74,11 @@ counters the port records:
                             multi-tile caps, the pair budget, the per-tile
                             cap); on a rank of a tile-sharded render the
                             kept pairs are its own tiles'
+  raster.grad_rows          the rows a projection backward covers: a
+                            launch of the kernel's (its autograd
+                            Function) or the plain chain's backward
+  composite.rows_trained    the slots the fine-tuned model places in the
+                            scene, a fine-tune step
   densify.children_written  an event's children written into free slots:
                             clones + 2 x splits
   densify.children_dropped  the children of its candidates that found no
