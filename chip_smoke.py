@@ -8,7 +8,7 @@ on BRICS captures read from disk, and sharded training over ranks.
 Phases, each of which exits non-zero on failure:
 
   1. build: nvcc compiles manus_tpu_torch/csrc/*.cu (composite, conv3x3,
-     lpips_head, knn, project, ssim) for sm_90a into manus_tpu_torch/_build/ (one nvcc per
+     lpips_head, knn, project, ssim, deform) for sm_90a into manus_tpu_torch/_build/ (one nvcc per
      source, in parallel, beside g++ for the host assembly of
      csrc/image_ops.cpp); ptxas's report of every library, read from the
      log kept beside it (also for one built earlier), must show no spill;
@@ -216,6 +216,25 @@ Phases, each of which exits non-zero on failure:
      phase's CLI run checks that the forward launched once a trained view
      and once an eval render, and the backward once a trained view.
 
+ 17. deform (runs after 16): the deformation kernels (csrc/deform.cu,
+     ops/deform.py) at the cells' shapes, DEFORM_ROWS: the hand's
+     131,072 rows (covariance, skinning by DEFORM_BONES transforms, the
+     sample of a DEFORM_GRID^3 grid, 2% of the rows outside it) and the
+     object's 1,048,576 (covariance alone). Against the plain chain on
+     the same card: the forward bit for bit, every input gradient
+     against autograd of the plain chain in float64 within twice the
+     float32 chain's own gap (or DEFORM_GRAD_RTOL); each kernel's ms
+     HBM-cold (CUDA-graph replays rotating over copies of its inputs past
+     100 MB) and of one input beside its bytes bound (skinning's backward
+     in a train step's form and in the fine-tune's, with tf's and the
+     weights' gradient), the plain chain's forward ms and its backward
+     (forward + backward less the forward with grad); ptxas's registers.
+     The trainer phase's CLI run checks one skinning forward a trained
+     view and eval render (and one a synthetic gt frame), the covariance
+     and skinning backward once a step, no grid-sample backward; the
+     composite phase's fine-tune one covariance, skinning and grid-sample
+     backward a step.
+
  13. parallel: the sharded training path (manus_tpu_torch/parallel/).
      (a) The composite kernels' tile-id form on the bench scene's view at
      each of PAR_SHAPES (512x512 and 1280x720) with PAR_G owners: each
@@ -294,9 +313,13 @@ from manus_tpu_torch.models.gaussians import (
     init_gaussian_model,
 )
 from manus_tpu_torch.ops import conv as conv_mod
+from manus_tpu_torch.ops import deform as deform_mod
 from manus_tpu_torch.ops import knn as knn_mod
 from manus_tpu_torch.ops import outliers
 from manus_tpu_torch.ops.contacts import CONTACT_THRESHOLD, contact_map
+from manus_tpu_torch.ops.grid_sample import (
+    skinning_weights_from_voxel_grid_torch,
+)
 from manus_tpu_torch.ops.rasterizer import composite
 from manus_tpu_torch.ops.rasterizer.api import (
     RasterConfig,
@@ -313,6 +336,7 @@ from manus_tpu_torch.ops.rasterizer.projection import TILE, project_gaussians
 from manus_tpu_torch.ops.skinning import (
     bone_deformation_transforms,
     skin_gaussians,
+    skin_gaussians_torch,
 )
 from manus_tpu_torch import main as cli
 from manus_tpu_torch.parallel import collectives
@@ -366,6 +390,7 @@ from manus_tpu_torch.utils.io import (
 )
 from manus_tpu_torch.utils.transforms import (
     covariance_from_scaling_rotation,
+    covariance_from_scaling_rotation_torch,
     matrix_to_quaternion,
 )
 
@@ -576,6 +601,15 @@ KNN_POINTS, KNN_VALID, KNN_REPS = 131072, 0.9, 20
 # another order, gradients within rounding of the closed form evaluated
 # in another order than autograd's (tests/test_torch_project_cuda.py).
 PROJECT_ROWS = {"hand": 131072, "object": 1048576}
+# The deformation kernels at the cells' shapes (phase 17): the hand's rows
+# (covariance, skinning by DEFORM_BONES transforms, the sample of a
+# DEFORM_GRID^3 grid of DEFORM_BONES channels) and the object's
+# (covariance alone); the forward held to the chain's bits, the backward
+# to autograd of the chain in float64: within twice the float32 chain's
+# own gap of each leaf's largest entry, or DEFORM_GRAD_RTOL
+# (tests/test_torch_cuda.py DEFORM_FWD_ULPS, DEFORM_GRAD_RTOL).
+DEFORM_ROWS = {"hand": 131072, "object": 1048576}
+DEFORM_BONES, DEFORM_GRID, DEFORM_GRAD_RTOL = 21, 128, 1e-6
 PROJECT_COLOR_TOL, PROJECT_GRAD_TOL = 1e-5, 1e-4
 # The SSIM kernels at a training view's size (phase 16), held to the plain
 # chain as tests/test_torch_cuda.py holds them (SSIM_VALUE_ATOL and
@@ -622,9 +656,21 @@ PROJECT_COUNTERS = {"project_fwd": proj_mod.project_fwd_cuda,
 # render, one backward a view a step.
 SSIM_COUNTERS = {"ssim_fwd": loss_mod.ssim_fwd_cuda,
                  "ssim_bwd": loss_mod.ssim_bwd_cuda}
+# The deformation kernels' wrappers: a train step's covariance, skinning
+# and grid sample forward, and the first two backward (the sample's
+# positions are detached); the fine-tune's sample backward too.
+DEFORM_COUNTERS = {
+    "covariance_fwd": deform_mod.covariance_fwd_cuda,
+    "covariance_bwd": deform_mod.covariance_bwd_cuda,
+    "skin_fwd": deform_mod.skin_fwd_cuda,
+    "skin_bwd": deform_mod.skin_bwd_cuda,
+    "skin_sample_fwd": deform_mod.skin_sample_fwd_cuda,
+    "skin_sample_bwd": deform_mod.skin_sample_bwd_cuda,
+}
 # Every count _run_cli reads: the kernels' above, the search kernel's, the
-# projection kernels' and the SSIM kernels'.
-COUNTED = (*COUNTERS, "nearest_neighbor", *PROJECT_COUNTERS, *SSIM_COUNTERS)
+# projection kernels', the SSIM kernels' and the deformation kernels'.
+COUNTED = (*COUNTERS, "nearest_neighbor", *PROJECT_COUNTERS, *SSIM_COUNTERS,
+           *DEFORM_COUNTERS)
 # Launches per view and step of each kernel on the LPIPS step.
 PER_STEP = {"composite_fwd": 1, "composite_bwd": 1, "conv3x3_layout": 13,
             "conv3x3_layout_dx": 13, "lpips_head_fwd": 5, "lpips_head_bwd": 5,
@@ -1478,6 +1524,169 @@ def ssim_phase(dev, ptxas_log):
                          max_rel_err=grad_gap)}
 
 
+def deform_inputs(n, dev, seed=0):
+    """A hand's rows at the cells' widths (tests/test_torch_cuda.py's too):
+    positions over a DEFORM_GRID^3 grid of DEFORM_BONES channels, 2% of
+    them outside it and a slab of it all zeros (the background channel),
+    log-normal scales, unnormalised quaternions, near-rigid transforms."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f32 = dict(device=dev, dtype=torch.float32)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, **f32)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, **f32)
+
+    center = torch.tensor([0.02, -0.01, 0.05], **f32)
+    scale = torch.tensor([0.12, 0.1, 0.09], **f32)
+    xyz = center + (rand(n, 3) * 2 - 1) * scale
+    out = n // 50
+    xyz[:out] = center + (rand(out, 3) * 2 - 1) * scale * 1.6
+    grid = rand(DEFORM_GRID, DEFORM_GRID, DEFORM_GRID, DEFORM_BONES) ** 4
+    grid[:, :, :8] = 0.0
+    tf = torch.eye(4, **f32).repeat(DEFORM_BONES, 1, 1)
+    tf[:, :3, :] += 0.2 * randn(DEFORM_BONES, 3, 4)
+    x = dict(xyz=xyz, center=center, scale=scale, grid=grid,
+             scaling=torch.exp(randn(n, 3) - 4.0), rotation=randn(n, 4),
+             transforms=tf)
+    # the skinning's other inputs as a step makes them, by the plain chain
+    x["weights"] = skinning_weights_from_voxel_grid_torch(xyz, center, scale,
+                                                          grid)
+    x["cov"] = covariance_from_scaling_rotation_torch(x["scaling"],
+                                                      x["rotation"])
+    return x
+
+
+def _ulps(x):
+    i = x.contiguous().view(torch.int32).long()
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def deform_forms(kind, x, dev):
+    """{form: (launch, args, bytes)} of one kind's kernels, each input
+    read once and each output written once; (plain forward, kernel
+    forward) over the differentiated leaves, and the leaves' names."""
+    n = x["xyz"].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b = DEFORM_BONES
+
+    def cot(*shape):
+        return torch.randn(n, *shape, device=dev, generator=gen)
+
+    if kind == "covariance":
+        g = cot(6)
+        args = (x["scaling"], x["rotation"])
+        forms = {
+            "fwd": (deform_mod.covariance_fwd_cuda, args, n * (28 + 24)),
+            "bwd": (lambda s, r, g_: deform_mod.covariance_bwd_cuda(
+                s, r, 1.0, g_), args + (g,), n * (28 + 24 + 28))}
+        return forms, (covariance_from_scaling_rotation_torch,
+                       deform_mod.covariance_cuda), ("scaling", "rotation")
+    if kind == "skin":
+        gx, gc, gt = cot(3), cot(6), cot(4, 4)
+        args = (x["xyz"], x["cov"], x["weights"], x["transforms"])
+        rows = 12 + 24 + 4 * b
+
+        def step_bwd(*a):  # a train step's: no weights' or tf's gradient
+            return deform_mod.skin_bwd_cuda(*a, None, (True, True, False))
+
+        forms = {
+            "fwd": (deform_mod.skin_fwd_cuda, args, n * (rows + 100)),
+            "bwd": (step_bwd, args + (gx, gc), n * (rows + 36 + 36)),
+            "bwd_finetune": (deform_mod.skin_bwd_cuda, args + (gx, gc, gt),
+                             n * (rows + 100 + rows))}
+        return forms, (
+            lambda *a: tuple(skin_gaussians_torch(*a, x["transforms"])),
+            lambda *a: deform_mod.skin_cuda(*a, x["transforms"])), (
+            "xyz", "cov", "weights")
+    c = DEFORM_BONES
+    args = (x["xyz"], x["center"], x["scale"], x["grid"])
+    forms = {
+        "fwd": (deform_mod.skin_sample_fwd_cuda, args,
+                n * (12 + 8 * 4 * c + 4 * c)),
+        "bwd": (deform_mod.skin_sample_bwd_cuda, args + (cot(c),),
+                n * (12 + 8 * 4 * c + 4 * c + 12))}
+    place = (x["center"], x["scale"], x["grid"])
+    return forms, (
+        lambda p: skinning_weights_from_voxel_grid_torch(p, *place),
+        lambda p: deform_mod.skin_sample_cuda(p, *place)), ("xyz",)
+
+
+def deform_phase(dev, ptxas_log):
+    """The deformation kernels at the cells' shapes (docstring phase 17).
+    ptxas_log: the build's output for csrc/deform.cu."""
+    out = {name: {} for name in DEFORM_COUNTERS}
+    for cell, n in DEFORM_ROWS.items():
+        x = deform_inputs(n, dev)
+        kinds = ("covariance", "skin", "skin_sample") if cell == "hand" \
+            else ("covariance",)
+        for kind in kinds:
+            forms, (plain, kernel), names = deform_forms(kind, x, dev)
+
+            def run(fn, backward=True, dtype=torch.float32):
+                leaves = [x[k].to(dtype).clone().requires_grad_(True)
+                          for k in names]
+                outs = fn(*leaves)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                if not backward:
+                    return outs, None
+                gen = torch.Generator(device=dev).manual_seed(7)
+                loss = sum((o * torch.randn(o.shape, device=dev,
+                                            generator=gen).to(dtype)).sum()
+                           for o in outs)
+                return outs, torch.autograd.grad(loss, leaves)
+
+            got, got_g = run(kernel)
+            want, want_g = run(plain)
+            # autograd of the plain chain in float64, the yardstick of both
+            plain64 = deform_forms(
+                kind, {k: v.double() for k, v in x.items()}, dev)[1][0]
+            exact_g = run(plain64, dtype=torch.float64)[1]
+            ulps = max(int((_ulps(g.detach()) - _ulps(w.detach())).abs()
+                           .max()) for g, w in zip(got, want))
+            gaps = [((g.double() - e).abs().max() / e.abs().max()).item()
+                    for g, e in zip((*got_g, *want_g), exact_g * 2)]
+            grad_gap = max(gaps[:len(exact_g)])
+            plain_gap = max(gaps[len(exact_g):])
+            check(ulps == 0, f"deform {kind} {cell}: the forward is {ulps} "
+                  "ulps from the plain chain")
+            check(grad_gap <= max(2 * plain_gap, DEFORM_GRAD_RTOL),
+                  f"deform {kind} {cell}: gradients {grad_gap:.2e} from "
+                  f"float64's (the plain chain's {plain_gap:.2e})")
+            with torch.no_grad():
+                plain_fwd_ms = cuda_ms(lambda: plain(*[x[k] for k in names]),
+                                       5)
+            # with grad the forward also builds the graph the backward walks
+            plain_graph_ms = cuda_ms(lambda: run(plain, False), 5)
+            plain_step_ms = cuda_ms(lambda: run(plain), 5)
+            for form, (launch, args, nbytes) in forms.items():
+                cold = rotated_graph_ms(launch, cold_copies(*args))
+                one = cuda_graph_ms(lambda: launch(*args), 20)
+                bound = bound_ms(nbytes, 0, FP32_FLOP_PER_S)[0]
+                name = f"{'skin_sample' if kind == 'skin_sample' else kind}"\
+                    f"_{'fwd' if form == 'fwd' else 'bwd'}"
+                plain_ms = plain_fwd_ms if form == "fwd" \
+                    else plain_step_ms - plain_graph_ms
+                print(f"deform {kind} {form} {cell}: {n} rows: "
+                      f"{cold:.4f} ms HBM-cold, {one:.4f} one input (bound "
+                      f"{bound:.4f} by bytes, {nbytes / 1e6:.1f} MB); plain "
+                      f"chain {plain_ms:.3f} ms; forward {ulps} ulps from "
+                      f"the plain chain; gradients {grad_gap:.2e} from "
+                      f"float64's (the plain chain's {plain_gap:.2e})")
+                key = cell if form != "bwd_finetune" else "hand_finetune"
+                out[name][key] = dict(
+                    rows=n, ms=cold, one_input_ms=one, bound_ms=bound,
+                    bound_by="bytes", plain_ms=plain_ms, max_ulps=ulps,
+                    max_rel_err=grad_gap, plain_rel_err=plain_gap)
+        del x
+        torch.cuda.empty_cache()
+    ptxas = [ln.strip() for ln in ptxas_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"deform ptxas: {ptxas}")
+    return out
+
+
 def composite_bounds(n_walk):
     """((ms, "bytes" or "operations") of the forward, of the backward):
     the least time the card could take for the work of this payload's
@@ -2101,7 +2310,7 @@ def _run_cli(argv):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in (*COUNTERS.values(), *PROJECT_COUNTERS.values(),
-               *SSIM_COUNTERS.values()):
+               *SSIM_COUNTERS.values(), *DEFORM_COUNTERS.values()):
         fn.launches = 0
     knn_mod.nearest_neighbor_cuda.launches = 0
     tee = Tee(sys.stdout)
@@ -2117,7 +2326,8 @@ def _run_cli(argv):
     launches["nearest_neighbor"] = knn_mod.nearest_neighbor_cuda.launches
     launches.update({name: fn.launches
                      for name, fn in (*PROJECT_COUNTERS.items(),
-                                      *SSIM_COUNTERS.items())})
+                                      *SSIM_COUNTERS.items(),
+                                      *DEFORM_COUNTERS.items())})
     return (tr, launches, tee.lines,
             torch.cuda.max_memory_allocated() / 2**20, wall)
 
@@ -2240,6 +2450,21 @@ def trainer_phase(bare_ms):
     ssim_got = (launches["ssim_fwd"], launches["ssim_bwd"])
     check(ssim_got == ssim_want, f"trainer: the SSIM kernels launched "
           f"{ssim_got} times (forward, backward), not {ssim_want}")
+    # the deformation stage: one skinning forward a trained view and eval
+    # render (and one a synthetic gt frame, whose renders share it), its
+    # covariance and skinning backward once a step, no sample backward
+    # (a step's positions are detached)
+    renders = launches["composite_fwd"] - n_gt
+    deform_want = {"skin_fwd": renders + tr.cfg.dataset.num_frames,
+                   "covariance_fwd": renders,
+                   "skin_bwd": launches["composite_bwd"],
+                   "covariance_bwd": launches["composite_bwd"],
+                   "skin_sample_bwd": 0}
+    deform_got = {k: launches[k] for k in deform_want}
+    check(deform_got == deform_want, f"trainer: the deformation kernels "
+          f"launched {deform_got} times, not {deform_want}")
+    check(launches["skin_sample_fwd"] >= renders, "trainer: "
+          f"{launches['skin_sample_fwd']} grid samples for {renders} renders")
     del tr, back
 
     rtr, rlaunches, rlines, rpeak, rwall = _run_cli([
@@ -2493,6 +2718,16 @@ def composite_phase(dev, hand_run_dir):
         check(launches["composite_bwd"] == steps,
               f"composite {mode}: composite_bwd launched "
               f"{launches['composite_bwd']} times, not {steps}")
+        # a fine-tune step differentiates the hand's covariance, skinning
+        # and grid sample (to its positions, where a grid gives the
+        # weights) once each; the object is frozen
+        deform_want = {"covariance_bwd": steps, "skin_bwd": steps,
+                       "skin_sample_bwd": 0 if run.models.voxel_grid is None
+                       else steps}
+        deform_got = {n: launches[n] for n in deform_want}
+        check(deform_got == deform_want, f"composite {mode}: the "
+              f"deformation backwards launched {deform_got} times, not "
+              f"{deform_want}")
         check(launches["nearest_neighbor"] >= 2 * frames,
               f"composite {mode}: the search kernel launched "
               f"{launches['nearest_neighbor']} times for {frames} frames")
@@ -4117,7 +4352,7 @@ def main() -> int:
     t0 = time.perf_counter()
     # the kernel sources (nvcc) and the host assembly (g++)
     names = ["composite", "conv3x3", "lpips_head", "knn", "project", "ssim",
-             "image_ops"]
+             "deform", "image_ops"]
     cached = [n for n in names if cuda_build.library_path(n).exists()
               and cuda_build.log_path(n).exists()]
     logs = cuda_build.build(names)
@@ -4163,6 +4398,7 @@ def main() -> int:
     results.update(knn_phase(dev, logs["knn"]))
     results.update(project_phase(dev, logs["project"]))
     results.update(ssim_phase(dev, logs["ssim"]))
+    results.update(deform_phase(dev, logs["deform"]))
 
     flagship_ms = flagship_phase(dev)
     print(f"flagship step: median {flagship_ms:.3f} ms (the primary plain "
@@ -4222,7 +4458,13 @@ def main() -> int:
              replaces="none (the JAX package's ssim is plain JAX, banded "
                       "matrix products)",
              launches=launches[name], library_ms=None, **results[name])
-        for name in SSIM_COUNTERS]
+        for name in SSIM_COUNTERS] + [
+        dict(name=name, route="cuda", source="manus_tpu_torch/csrc/deform.cu",
+             replaces="none (the JAX package's covariance_from_scaling_"
+                      "rotation, skin_gaussians and skinning_weights_from_"
+                      "voxel_grid are plain JAX)",
+             launches=launches[name], library_ms=None, **results[name])
+        for name in DEFORM_COUNTERS]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

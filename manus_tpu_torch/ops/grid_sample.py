@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from manus_tpu_torch.ops import deform
+
 
 def grid_sample_trilinear(grid: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """grid: [D, H, W, C]; coords: [N, 3] normalised (x, y, z). Returns
@@ -52,7 +54,25 @@ def skinning_weights_from_voxel_grid(xyz: torch.Tensor,
     """Per-point skin weights: the grid sampled at the points' normalised
     coordinates, then normalised to sum to one. A point that samples all
     zeros (outside the grid) gets the last, background channel, so its
-    blended transform stays the identity's, not NaN."""
+    blended transform stays the identity's, not NaN.
+
+    CUDA tensors take the kernel pair of csrc/deform.cu
+    (`ops.deform.skin_sample_cuda`: float32, at most DEFORM_MAX_CHANNELS
+    channels, a gradient to xyz alone), CPU tensors the plain version
+    (`skinning_weights_from_voxel_grid_torch`)."""
+    if xyz.is_cuda:
+        return deform.skin_sample_cuda(xyz, grid_center, grid_scale,
+                                       grid_weights)
+    return skinning_weights_from_voxel_grid_torch(xyz, grid_center,
+                                                  grid_scale, grid_weights)
+
+
+def skinning_weights_from_voxel_grid_torch(xyz: torch.Tensor,
+                                           grid_center: torch.Tensor,
+                                           grid_scale: torch.Tensor,
+                                           grid_weights: torch.Tensor
+                                           ) -> torch.Tensor:
+    """skinning_weights_from_voxel_grid's plain version."""
     xyz_norm = (xyz - grid_center.reshape(1, 3)) / grid_scale.reshape(1, 3)
     wts = grid_sample_trilinear(grid_weights, xyz_norm)
     denom = wts.sum(-1, keepdim=True)

@@ -5,6 +5,8 @@ from typing import NamedTuple
 
 import torch
 
+from manus_tpu_torch.ops import deform
+
 
 class SkinnedGaussians(NamedTuple):
     posed_xyz: torch.Tensor  # [N, 3]
@@ -32,7 +34,25 @@ def skin_gaussians(
     skin_weights: torch.Tensor,  # [N, B]
     transforms: torch.Tensor,  # [B, 4, 4]
 ) -> SkinnedGaussians:
-    """Blend bone transforms per point, then pose means and R Sigma R^T."""
+    """Blend bone transforms per point, then pose means and R Sigma R^T.
+
+    CUDA tensors take the kernel pair of csrc/deform.cu
+    (`ops.deform.skin_cuda`: float32, at most DEFORM_MAX_CHANNELS bones,
+    no gradient to the transforms), CPU tensors the plain version
+    (`skin_gaussians_torch`)."""
+    if cano_xyz.is_cuda:
+        return SkinnedGaussians(*deform.skin_cuda(
+            cano_xyz, cano_cov, skin_weights, transforms))
+    return skin_gaussians_torch(cano_xyz, cano_cov, skin_weights, transforms)
+
+
+def skin_gaussians_torch(
+    cano_xyz: torch.Tensor,  # [N, 3]
+    cano_cov: torch.Tensor,  # [N, 6] upper-tri canonical covariance
+    skin_weights: torch.Tensor,  # [N, B]
+    transforms: torch.Tensor,  # [B, 4, 4]
+) -> SkinnedGaussians:
+    """skin_gaussians' plain version, one torch op a term."""
     b = transforms.shape[0]
     tf = (skin_weights @ transforms.reshape(b, 16)).reshape(-1, 4, 4)
 

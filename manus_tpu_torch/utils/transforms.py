@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from manus_tpu_torch.ops import deform
+
 
 def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
     """[..., 4] wxyz quaternion -> [..., 3, 3] rotation matrix.
@@ -71,7 +73,23 @@ def build_symmetric(six: torch.Tensor) -> torch.Tensor:
 def covariance_from_scaling_rotation(
     scaling: torch.Tensor, rotation: torch.Tensor, scaling_modifier: float = 1.0
 ) -> torch.Tensor:
-    """Sigma = (R S)(R S)^T as [N, 6] upper-tri: sum_k s_k^2 R_ik R_jk."""
+    """Sigma = (R S)(R S)^T as [N, 6] upper-tri: sum_k s_k^2 R_ik R_jk.
+
+    CUDA tensors take the kernel pair of csrc/deform.cu
+    (`ops.deform.covariance_cuda`: float32, [N, 3] and [N, 4]), CPU
+    tensors the plain version (`covariance_from_scaling_rotation_torch`).
+    """
+    if scaling.is_cuda or rotation.is_cuda:
+        return deform.covariance_cuda(scaling, rotation, scaling_modifier)
+    return covariance_from_scaling_rotation_torch(scaling, rotation,
+                                                  scaling_modifier)
+
+
+def covariance_from_scaling_rotation_torch(
+    scaling: torch.Tensor, rotation: torch.Tensor, scaling_modifier: float = 1.0
+) -> torch.Tensor:
+    """covariance_from_scaling_rotation's plain version, one torch op a
+    term."""
     R = build_rotation(rotation)
     s2 = (scaling_modifier * scaling) ** 2
     s0, s1, s2_ = s2[..., 0], s2[..., 1], s2[..., 2]

@@ -15,10 +15,16 @@ import numpy as np
 import pytest
 import torch
 
+from manus_tpu_torch.ops.grid_sample import (
+    skinning_weights_from_voxel_grid_torch,
+)
 from manus_tpu_torch.ops.rasterizer import composite
 from manus_tpu_torch.ops.rasterizer.api import RasterConfig, render_gaussians
 from manus_tpu_torch.utils.camera import make_camera
-from manus_tpu_torch.utils.transforms import covariance_from_scaling_rotation
+from manus_tpu_torch.utils.transforms import (
+    covariance_from_scaling_rotation,
+    covariance_from_scaling_rotation_torch,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -1125,3 +1131,189 @@ def test_cuda_ssim_checks_inputs(dev):
     part = torch.empty(3, 16, 24, 3, device=dev)
     with pytest.raises(ValueError, match="grad"):
         losses.ssim_bwd_cuda(part, pred, gt, torch.ones(1, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# The deformation kernels (csrc/deform.cu): covariance, skinning and the
+# voxel grid's skin weights against the plain chain they replace.
+
+DEFORM_ROWS = (131_072, 1_048_576)
+# The forward's largest gap from the plain chain, in ulps of float32: the
+# kernels round every operation as the chain does and add in the order
+# ATen's reductions and cuBLAS's GEMM take on the card (0 read at both
+# sizes). At 1,048,576 rows cuBLAS blends ~2e-5 of the transforms' entries
+# in another order (read: 1.5e-5 to 1.8e-5 of each output, gaps of 2.4e-7
+# in tf and 3e-8 in the posed mean): there the test takes the share of
+# entries that differ and their largest gap over the output's largest
+# entry.
+DEFORM_FWD_ULPS = {"covariance": 0, "skin": 0, "skin_sample": 0}
+DEFORM_1M_SKIN_SHARE, DEFORM_1M_SKIN_GAP = 1e-4, 1e-6
+# The backward against autograd of the plain chain in float64, the largest
+# gap over the leaf's largest entry: at most twice the float32 chain's own
+# gap, or DEFORM_GRAD_RTOL where that is smaller. The closed forms gather
+# terms that autograd adds one op at a time, and where the grid's weights
+# nearly vanish the normalisation's gradient cancels in both orders.
+DEFORM_GRAD_RTOL = 1e-6
+
+
+def _ulps(x):
+    """float32 bits on a line where neighbouring floats are 1 apart."""
+    i = x.contiguous().view(torch.int32).long()
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def deform_forward_ulps(got, want) -> int:
+    return int((_ulps(got) - _ulps(want)).abs().max())
+
+
+def deform_inputs(n, dev):
+    """chip_smoke.py's hand rows at the cells' widths (its DEFORM_BONES
+    bones and DEFORM_GRID^3 grid, 2% of the positions outside it)."""
+    from chip_smoke import deform_inputs as make
+    return make(n, dev)
+
+
+def _deform_case(kind, x, plain: bool, dtype=torch.float32):
+    """(outputs, leaves' gradients) of one kernel or its plain chain (in
+    `dtype`), from fresh leaves; the cotangents fixed by the seed."""
+    from manus_tpu_torch.ops import deform
+    from manus_tpu_torch.ops.skinning import skin_gaussians_torch
+
+    dev = x["xyz"].device
+    x = {k: v.to(dtype) for k, v in x.items()}
+    if kind == "covariance":
+        leaves = [x["scaling"].clone().requires_grad_(True),
+                  x["rotation"].clone().requires_grad_(True)]
+        fn = covariance_from_scaling_rotation_torch if plain \
+            else deform.covariance_cuda
+        outs = (fn(*leaves),)
+    elif kind == "skin_sample":
+        leaves = [x["xyz"].clone().requires_grad_(True)]
+        fn = skinning_weights_from_voxel_grid_torch if plain \
+            else deform.skin_sample_cuda
+        outs = (fn(leaves[0], x["center"], x["scale"], x["grid"]),)
+    else:
+        leaves = [x["xyz"].clone().requires_grad_(True),
+                  x["cov"].clone().requires_grad_(True),
+                  x["weights"].clone().requires_grad_(True)]
+        outs = tuple(skin_gaussians_torch(*leaves, x["transforms"])) if plain \
+            else deform.skin_cuda(*leaves, x["transforms"])
+    gen = torch.Generator(device=dev).manual_seed(7)
+    loss = sum((o * torch.randn(o.shape, generator=gen, device=dev).to(
+        dtype)).sum() for o in outs)
+    return [o.detach() for o in outs], torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("n", DEFORM_ROWS)
+@pytest.mark.parametrize("kind", ["covariance", "skin", "skin_sample"])
+def test_cuda_deform_matches_plain(dev, kind, n):
+    x = deform_inputs(n, dev)
+    got, got_g = _deform_case(kind, x, plain=False)
+    want, want_g = _deform_case(kind, x, plain=True)
+    _, exact_g = _deform_case(kind, x, plain=True, dtype=torch.float64)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        if (kind, n) == ("skin", 1_048_576):
+            share = (g != w).float().mean().item()
+            gap = ((g - w).abs().max() / w.abs().max()).item()
+            assert share <= DEFORM_1M_SKIN_SHARE, (g.shape, share)
+            assert gap <= DEFORM_1M_SKIN_GAP, (g.shape, gap)
+        else:
+            ulps = deform_forward_ulps(g, w)
+            assert ulps <= DEFORM_FWD_ULPS[kind], (kind, n, g.shape, ulps)
+    for g, w, e in zip(got_g, want_g, exact_g):
+        scale = e.abs().max()
+        gap = ((g.double() - e).abs().max() / scale).item()
+        plain_gap = ((w.double() - e).abs().max() / scale).item()
+        assert gap <= max(2 * plain_gap, DEFORM_GRAD_RTOL), (
+            kind, n, gap, plain_gap)
+
+
+def test_cuda_deform_counts_launches(dev):
+    """One launch a call each way, through the dispatching functions the
+    callers use; the forward alone where nothing takes a gradient."""
+    from manus_tpu_torch.ops import deform
+    from manus_tpu_torch.ops.grid_sample import (
+        skinning_weights_from_voxel_grid)
+    from manus_tpu_torch.ops.skinning import skin_gaussians
+    from manus_tpu_torch.utils.transforms import (
+        covariance_from_scaling_rotation)
+
+    fns = (deform.covariance_fwd_cuda, deform.covariance_bwd_cuda,
+           deform.skin_fwd_cuda, deform.skin_bwd_cuda,
+           deform.skin_sample_fwd_cuda, deform.skin_sample_bwd_cuda)
+    x = deform_inputs(4096, dev)
+    before = [f.launches for f in fns]
+
+    def counts():
+        return tuple(f.launches - b for f, b in zip(fns, before))
+
+    xyz = x["xyz"].clone().requires_grad_(True)
+    s = x["scaling"].clone().requires_grad_(True)
+    r = x["rotation"].clone().requires_grad_(True)
+    w = skinning_weights_from_voxel_grid(xyz, x["center"], x["scale"],
+                                         x["grid"])
+    cov = covariance_from_scaling_rotation(s, r)
+    sk = skin_gaussians(xyz, cov, w, x["transforms"])
+    assert counts() == (1, 0, 1, 0, 1, 0)
+    loss = sk.posed_xyz.sum() + sk.posed_cov.sum() + sk.tf.sum()
+    torch.autograd.grad(loss, [xyz, s, r])
+    assert counts() == (1, 1, 1, 1, 1, 1)
+    with torch.no_grad():
+        w = skinning_weights_from_voxel_grid(xyz, x["center"], x["scale"],
+                                             x["grid"])
+        skin_gaussians(xyz, covariance_from_scaling_rotation(s, r), w,
+                       x["transforms"])
+    assert counts() == (2, 1, 2, 1, 2, 1)
+    # the detached sample of a training step: tf takes no gradient
+    w = skinning_weights_from_voxel_grid(xyz.detach(), x["center"],
+                                         x["scale"], x["grid"])
+    sk = skin_gaussians(xyz, covariance_from_scaling_rotation(s, r), w,
+                        x["transforms"])
+    assert not sk.tf.requires_grad
+    torch.autograd.grad(sk.posed_xyz.sum() + sk.posed_cov.sum(), [xyz, s, r])
+    assert counts() == (3, 2, 3, 2, 3, 1)
+    # an isotropic model's expanded scale, as get_scaling hands it over
+    s1 = x["scaling"][:, :1].clone().requires_grad_(True)
+    iso = covariance_from_scaling_rotation(s1.expand(-1, 3), r)
+    want = covariance_from_scaling_rotation(
+        s1.detach().expand(-1, 3).contiguous(), r.detach())
+    assert torch.equal(iso.detach(), want)
+    g, = torch.autograd.grad(iso.sum(), s1)
+    assert g.shape == s1.shape and counts() == (5, 3, 3, 2, 3, 1)
+
+
+def test_cuda_deform_checks_inputs(dev):
+    from manus_tpu_torch.ops import deform
+
+    x = deform_inputs(256, dev)
+    cov = deform.covariance_cuda(x["scaling"], x["rotation"])
+    w = deform.skin_sample_cuda(x["xyz"], x["center"], x["scale"],
+                                x["grid"])
+    T = x["transforms"]
+    with pytest.raises(ValueError, match="float32"):
+        deform.covariance_cuda(x["scaling"].double(), x["rotation"].double())
+    with pytest.raises(ValueError, match="scaling"):
+        deform.covariance_cuda(x["scaling"][:, :2], x["rotation"])
+    with pytest.raises(ValueError, match="float32"):
+        deform.skin_cuda(x["xyz"].double(), cov.double(), w.double(),
+                         T.double())
+    with pytest.raises(ValueError, match="skin_weights"):
+        deform.skin_cuda(x["xyz"], cov, w[:, :-1], T)
+    with pytest.raises(ValueError, match=r"\[B, 4, 4\]"):
+        deform.skin_cuda(x["xyz"], cov, w, T.reshape(-1, 16))
+    many = deform.DEFORM_MAX_CHANNELS + 1
+    with pytest.raises(ValueError, match="bones"):
+        deform.skin_cuda(x["xyz"], cov, torch.rand(256, many, device=dev),
+                         torch.eye(4, device=dev).repeat(many, 1, 1))
+    with pytest.raises(ValueError, match="transforms"):
+        deform.skin_cuda(x["xyz"], cov, w, T.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="float32"):
+        deform.skin_sample_cuda(x["xyz"].double(), x["center"], x["scale"],
+                                x["grid"])
+    with pytest.raises(ValueError, match="channels"):
+        deform.skin_sample_cuda(x["xyz"], x["center"], x["scale"],
+                                torch.rand(4, 4, 4, many, device=dev))
+    with pytest.raises(ValueError, match="grid"):
+        deform.skin_sample_cuda(x["xyz"], x["center"], x["scale"],
+                                x["grid"].clone().requires_grad_(True))
